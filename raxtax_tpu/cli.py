@@ -1,7 +1,7 @@
 """Command-line interface.
 
 Flag-compatible with the reference CLI (reference: src/io.rs:112-154,
-src/main.rs:14-173), plus TPU-specific extensions (``--backend``,
+src/main.rs:14-173), plus device extensions (``--backend``,
 ``--batch-size``, ``--mesh``). Same output artifacts (`raxtax.out`,
 `raxtax.tsv`, `raxtax.log`, `raxtax.ckp`, `raxtax.json`), same checkpoint /
 resume semantics, same BSD-style exit codes.
@@ -16,6 +16,7 @@ from pathlib import Path
 
 from .utils import errors
 from .utils.logging import (
+    close_logging,
     info_stderr,
     phase_timer,
     report_error,
@@ -30,7 +31,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="raxtax-tpu",
         description=(
-            "TPU-native k-mer based non-Bayesian taxonomic classifier "
+            "GPU k-mer based non-Bayesian taxonomic classifier "
             "(capability-compatible with raxtax)"
         ),
     )
@@ -84,17 +85,18 @@ def build_arg_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--pin", action="store_true",
-        help="Thread pinning (no-op on TPU; kept for CLI compatibility)",
+        help="Thread pinning (no-op on the device path; kept for CLI "
+        "compatibility)",
     )
     p.add_argument("-v", "--verbose", action="count", default=0)
     p.add_argument("-q", "--quiet", action="count", default=0)
-    # --- TPU-native extensions ---
+    # --- device extensions ---
     p.add_argument(
-        "--backend", choices=["auto", "oracle", "xla", "pallas", "stream"],
+        "--backend", choices=["auto", "oracle", "xla", "pallas"],
         default="auto",
-        help="Compute backend: auto (best available device path), "
-        "xla (jnp bit-matmul), pallas (gather + Harley-Seal popcount kernel), "
-        "stream (streaming-scatter kernel), oracle (host numpy, exact f64; slow)",
+        help="Compute backend: auto (pallas on a GPU, xla elsewhere), "
+        "xla (dense bit-matmul), pallas (postings fold into counter planes), "
+        "oracle (host numpy, exact f64; slow)",
     )
     p.add_argument(
         "--batch-size", type=int, default=0,
@@ -212,7 +214,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.pin:
         info_stderr(
             "--pin has no effect: device placement replaces host thread "
-            "pinning on TPU",
+            "pinning",
             level,
         )
 
@@ -224,8 +226,8 @@ def main(argv: list[str] | None = None) -> int:
         # path, src/main.rs:61)
         db_path = Path(checkpoint.db_fingerprint.path)
         # Only the xla bit-matmul backend reads the [N, 2048] ref-major
-        # matrix (engine/device.py); skipping it on the pallas/stream path
-        # saves ~8 GB of build work, cache bytes and load faults at 1M refs
+        # matrix (engine/device.py); skipping it on the pallas path saves
+        # ~8 GB of build work, cache bytes and load faults at 1M refs
         # (the reference's bincode DB likewise stores exactly what its
         # engine reads, src/tree.rs:147-164). `--only-db` under `auto`
         # keeps the matrix — the future consumer's backend is unknown.
@@ -233,10 +235,10 @@ def main(argv: list[str] | None = None) -> int:
         if backend == "auto" and not args.only_db:
             from .utils.jaxcfg import setup_jax
 
-            setup_jax()
-            import jax
+            from .utils.jaxcfg import resolve_backend
 
-            backend = "pallas" if jax.devices()[0].platform == "tpu" else "xla"
+            setup_jax()
+            backend = resolve_backend(backend)
         want_ref_major = backend in ("auto", "xla")
         # the sharded mesh pipeline slices contiguous reference columns and
         # needs the packed postings layout; single-chip planes backends run
@@ -244,7 +246,7 @@ def main(argv: list[str] | None = None) -> int:
         # Mirror run_queries' mesh decision (engine/classify.py): a mesh
         # forms when --mesh is set or multiple local devices exist.
         want_layout = "packed"
-        if backend in ("pallas", "stream") and not args.mesh:
+        if backend == "pallas" and not args.mesh:
             from .utils.jaxcfg import setup_jax
 
             setup_jax()
@@ -368,6 +370,7 @@ def main(argv: list[str] | None = None) -> int:
                         "Removing checkpoint files failed! "
                         "Please delete them manually.", e
                     )
+    close_logging()
     writers.close()
     if proc_count > 1:
         # all hosts flush + close their shards, then host 0 folds them into

@@ -3,14 +3,14 @@
 The reference stores an inverted index `k_mer_map: Vec<Vec<u32>>` mapping each
 16-bit 8-mer to a sorted postings list of reference ids (src/tree.rs:114-137)
 and walks it with a scatter-add (src/raxtax.rs:58-64). That layout is
-CPU-idiomatic; the TPU dual is a dense packed bit matrix:
+CPU-idiomatic; the device dual is a dense packed bit matrix:
 
 - **ref-major** `R[num_refs, 2048] uint32`: bit k of row n set iff reference n
   contains k-mer k. Feeds the XLA unpack+matmul counts path.
 - **kmer-major** `P[65537, ceil(N/32)] uint32` (transposed postings
   bitvectors; one extra all-zero row used as the padding target): bit n of row
-  k set iff reference n contains k-mer k. Feeds the Pallas gather +
-  bit-sliced-popcount kernel.
+  k set iff reference n contains k-mer k. Feeds the postings fold
+  (gather + bit-sliced counters, ops/intersect_pallas.py).
 
 Both are built host-side with vectorized numpy from the COO (ref, kmer) pairs.
 """
@@ -75,10 +75,10 @@ def build_ref_major(
 
 def flat_words(num_refs: int) -> int:
     """Word count W of the FLAT postings layout, with capacity
-    32*W >= num_refs. W is a multiple of 1024 = LANE(128) x 8 sublanes so
-    NO device-side prep (dense fold, block-sparse fold, stream) ever pads
-    the matrix further — the flat tip mapping (word q%W, bit q/W) is baked
-    into the matrix and any later width change would shear it."""
+    32*W >= num_refs. W is a multiple of 1024 (the planes' 128-word rows
+    and the fold's power-of-two tiles divide it) so NO device-side prep
+    ever pads the matrix further — the flat tip mapping (word q%W, bit q/W)
+    is baked into the matrix and any later width change would shear it."""
     return 1024 * max(1, -(-num_refs // (WORD_BITS * 1024)))
 
 

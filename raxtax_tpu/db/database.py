@@ -1,6 +1,6 @@
 """The reference database: taxonomy + bit matrices + exact-match map.
 
-TPU-native equivalent of the reference `Tree` aggregate (src/tree.rs:36-43):
+Device-oriented equivalent of the reference `Tree` aggregate (src/tree.rs:36-43):
 `root`/`lineages` become the flattened :class:`Taxonomy`, `k_mer_map` becomes
 the packed bit matrices, `sequences` becomes a host hash map from encoded
 sequence bytes to tip ids. Persisted as an uncompressed ``.npz`` (the
@@ -29,7 +29,7 @@ _HASH_MULT = np.uint64(0x9E3779B97F4A7C15)  # odd 64-bit mixing constant
 class ExactIndex:
     """Hash index over the reference sequences (exact-match lookup).
 
-    TPU-first replacement for the reference's `sequences: HashMap<Vec<u8>,
+    Vectorized replacement for the reference's `sequences: HashMap<Vec<u8>,
     Vec<u32>>` (src/tree.rs:50-51, 109-112): instead of a 1M-iteration
     Python dict build on every load (seconds to tens of seconds), hash all
     sequences with one vectorized numpy pass (<2 s at 1M refs) and answer
@@ -193,7 +193,7 @@ class ExactIndex:
 class Database:
     taxonomy: Taxonomy
     #: [num_tips, 2048] uint32, or None when built with
-    #: with_ref_major=False (pallas/stream/oracle paths never read it)
+    #: with_ref_major=False (pallas/oracle paths never read it)
     ref_major: np.ndarray | None
     kmer_major: np.ndarray  #: [65537, n_words] uint32 postings bitvectors
     seq_flat: np.ndarray  #: uint8, concatenated 4-bit-encoded sequences
@@ -587,8 +587,8 @@ def load_or_parse_database(
     Returns (parsed_from_fasta, db). `with_ref_major=False` skips building
     the [N, 2048] ref-major matrix on the FASTA path — only the xla
     bit-matmul backend reads it (engine/device.py), and at 1M references it
-    is ~8 GB of build time, cache bytes and load faults the pallas/stream
-    backends never touch. A binary DB loads whatever it contains (a
+    is ~8 GB of build time, cache bytes and load faults the pallas
+    backend never touches. A binary DB loads whatever it contains (a
     mismatched `kmer_layout` postings matrix is rebuilt in one native
     pass); the engine raises an actionable error if xla later needs the
     ref-major matrix.

@@ -1,6 +1,6 @@
 """Flattened lineage taxonomy.
 
-TPU-first re-design of the reference's pointer tree (reference: src/tree.rs).
+Device-oriented re-design of the reference's pointer tree (reference: src/tree.rs).
 Instead of `Node { label, confidence_range, children, node_type }` objects we
 store one struct-of-arrays taxonomy: per-node `(range_start, range_end,
 parent, depth, node_type)` plus a CSR child index. Confidence of any node is

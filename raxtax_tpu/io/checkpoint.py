@@ -59,7 +59,7 @@ class Checkpoint:
     tsv: bool
     processed_queries: set[str] = field(default_factory=set)
     #: which arrays the binary DB carries: "full" (ref-major + kmer-major)
-    #: or "km-only" (pallas/stream builds skip the ref-major matrix).
+    #: or "km-only" (pallas builds skip the ref-major matrix).
     #: Informational — the .rxdb header is authoritative and the engine
     #: errors actionably when xla needs the missing matrix.
     db_variant: str = "full"

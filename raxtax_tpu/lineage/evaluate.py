@@ -1,7 +1,7 @@
 """Lineage confidence aggregation and result emission.
 
 Host-side replay of the reference's `Lineage::evaluate` recursion
-(reference: src/lineage.rs:61-179), re-designed for the TPU pipeline: instead
+(reference: src/lineage.rs:61-179), re-designed for the device pipeline: instead
 of walking the whole pointer tree with a per-tip probability vector, the
 device delivers only the *significant* node confidences (range sums over the
 per-tip probability vector, thresholded at the 2-decimal rounding cutoff),

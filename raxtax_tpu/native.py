@@ -1,9 +1,10 @@
 """ctypes loader for the native host kernels (native/rx_host.cpp).
 
-Auto-builds the shared library with g++ on first use (cached by source
-mtime); every entry point has a pure-numpy fallback, so the package works —
-just slower — without a compiler. pybind11 is unavailable in this
-environment, hence the plain C ABI + ctypes.
+Auto-builds the shared library with g++ on first use into `.native_build/`
+inside the checkout (cached by source mtime; ``RAXTAX_NATIVE_DIR``
+overrides); every entry point has a pure-numpy fallback, so the package
+works — just slower — without a compiler. Plain C ABI + ctypes keeps the
+build free of Python binding libraries.
 """
 
 from __future__ import annotations
@@ -20,7 +21,10 @@ log = logging.getLogger("raxtax")
 
 _SRC = Path(__file__).resolve().parent.parent / "native" / "rx_host.cpp"
 _LIB_DIR = Path(
-    os.environ.get("RAXTAX_NATIVE_DIR", os.path.expanduser("~/.cache/raxtax-native"))
+    os.environ.get(
+        "RAXTAX_NATIVE_DIR",
+        Path(__file__).resolve().parent.parent / ".native_build",
+    )
 )
 _lib = None
 _tried = False
@@ -41,14 +45,19 @@ def _build() -> Path | None:
     lib = _LIB_DIR / f"rx_host_{int(_SRC.stat().st_mtime)}.so"
     if lib.is_file():
         return lib
+    # build to a private name and rename: concurrent processes (test
+    # workers) never load a half-written library
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     cmd = [
         "g++", "-O3", "-march=native", "-shared", "-fPIC", "-pthread",
-        "-o", str(lib), str(_SRC),
+        "-o", str(tmp), str(_SRC),
     ]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, lib)
     except Exception as e:  # missing compiler, etc.
         log.info("native build failed (%s); using numpy fallbacks", e)
+        tmp.unlink(missing_ok=True)
         return None
     return lib
 
@@ -180,7 +189,7 @@ def build_bit_matrices_flat(
     when the library is unavailable.
 
     `with_ref_major=False` skips the ref-major matrix entirely (the
-    Pallas/stream backends and the host oracle never read it) — at 1M refs
+    pallas backend and the host oracle never read it) — at 1M refs
     that halves the build's fresh-memory footprint, which dominates build
     time on hosts with slow page-fault provisioning.
 

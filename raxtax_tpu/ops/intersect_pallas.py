@@ -1,26 +1,26 @@
-"""Pallas intersection-count kernel: gathered postings + Harley-Seal popcount.
+"""Postings fold: gathered postings rows -> Harley-Seal counter planes.
 
-The TPU-native dual of the reference's inverted-index walk
+The device dual of the reference's inverted-index walk
 (reference: src/raxtax.rs:58-64 `for k in kmers: for id in postings[k]:
 buffer[id] += 1`). Instead of scattering, each query *gathers* the packed
 postings bitvector row of every one of its k-mers (kmer-major matrix
 ``P[65537, Nw] uint32``, bit n of row k = "reference n contains k-mer k")
-and accumulates the rows with **vertical (bit-sliced) counters**.
+and accumulates the rows with **vertical (bit-sliced) counters**: a
+Harley-Seal carry-save adder tree over blocks of 16 rows keeps
+``ones/twos/fours/eights`` tiers plus binary counter planes for weight >= 16
+(~5.6 word ops per row instead of ~2P for a ripple-carry).
 
-Division of labor:
+Two implementations of one contract (:func:`intersection_planes`):
 
-- XLA performs the row gather (`kmer_major[kmer_idx]`) — a single fused
-  gather at full HBM bandwidth, avoiding per-row DMA issue overhead (which
-  dominated a manual `make_async_copy`-per-row variant);
-- the Pallas kernel streams the now-contiguous rows through VMEM via the
-  BlockSpec pipeline (16 rows per grid step) and folds them with a
-  **Harley-Seal carry-save adder tree**: persistent `ones/twos/fours/eights`
-  tier vectors per query plus binary counter planes for weight >= 16. Cost is
-  ~5.6 vector ops per word per row versus 27 for a plain ripple-carry.
+- :func:`_fold_triton` — a Pallas-Triton kernel. Each program handles one
+  query and one tile of :data:`FOLD_TILE` postings words: it loads its own
+  k-mer ids, loops over its real 16-row blocks only, keeps the tiers and
+  high planes in registers and writes the planes once.
+- :func:`fold_planes_jnp` — the plain version: an XLA row gather per block
+  of 16 k-mers folded by the same adder tree inside a ``lax.scan``.
 
-Work per query is O(|kmers| · N/32) word-ops instead of the dense matmul's
-O(65536 · N) MACs — a 50-100x reduction at barcode k-mer densities. Padded
-k-mer slots point at row 65536, which is all zeros (a CSA no-op).
+Work per query is O(|kmers| · N/32) words. Padded k-mer slots point at row
+65536, which is all zeros (a CSA no-op).
 """
 
 from __future__ import annotations
@@ -31,20 +31,20 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-from ..db.bitmatrix import WORD_BITS
+from ..utils.jaxcfg import kernel_route
 
-HS_BLOCK = 16  #: rows folded per grid step (one Harley-Seal block)
-LANE = 128  #: lane width; Nw is padded to a multiple of this
+HS_BLOCK = 16  #: rows folded per Harley-Seal block
+LANE = 128  #: planes are [B, P, S, LANE]; Nw is padded to a multiple
 PAD_ROW = 0x10000  #: index of the all-zero padding row (65536)
 TIERS = 4  #: ones/twos/fours/eights persistent tiers (weights 1,2,4,8)
+FOLD_TILE = 512  #: postings words per Triton program (power of two)
 
 
-def _fused_gather_env() -> bool:
-    import os
-
-    return os.environ.get("RAXTAX_FUSED_GATHER", "") not in ("", "0")
+def n_high_planes(max_count: int) -> int:
+    """Binary counter planes above the four tiers for counts <= max_count."""
+    return max(int(np.ceil(np.log2(max_count + 1))) - TIERS, 1)
 
 
 def _csa(a, b, c):
@@ -54,527 +54,147 @@ def _csa(a, b, c):
     return s, carry
 
 
-def _hs_kernel(n_high: int):
-    """Harley-Seal 16-block kernel. Output planes: [ones, twos, fours,
-    eights, p16, p32, ...] — plane i has weight 2^i."""
-
-    def kernel(rows_ref, out_ref, acc):
-        # rows_ref: VMEM [HS_BLOCK, S, 128] (one block of gathered rows)
-        # acc: VMEM [TIERS + n_high, S, 128] persistent accumulator
-        k = pl.program_id(1)
-        n_k = pl.num_programs(1)
-
-        @pl.when(k == 0)
-        def _():
-            acc[...] = jnp.zeros_like(acc)
-
-        x = [rows_ref[i] for i in range(HS_BLOCK)]
-        ones, twos = acc[0], acc[1]
-        fours, eights = acc[2], acc[3]
-
-        ones, t0 = _csa(ones, x[0], x[1])
-        ones, t1 = _csa(ones, x[2], x[3])
-        twos, f0 = _csa(twos, t0, t1)
-        ones, t0 = _csa(ones, x[4], x[5])
-        ones, t1 = _csa(ones, x[6], x[7])
-        twos, f1 = _csa(twos, t0, t1)
-        fours, e0 = _csa(fours, f0, f1)
-        ones, t0 = _csa(ones, x[8], x[9])
-        ones, t1 = _csa(ones, x[10], x[11])
-        twos, f0 = _csa(twos, t0, t1)
-        ones, t0 = _csa(ones, x[12], x[13])
-        ones, t1 = _csa(ones, x[14], x[15])
-        twos, f1 = _csa(twos, t0, t1)
-        fours, e1 = _csa(fours, f0, f1)
-        eights, sixteens = _csa(eights, e0, e1)
-
-        acc[0], acc[1], acc[2], acc[3] = ones, twos, fours, eights
-        # ripple the weight-16 carry into the binary counter planes
-        carry = sixteens
-        for p in range(n_high):
-            plane = acc[TIERS + p]
-            acc[TIERS + p] = plane ^ carry
-            carry = plane & carry
-
-        @pl.when(k == n_k - 1)
-        def _():
-            out_ref[0] = acc[...]
-
-    return kernel
+def _hs_block(acc, x):
+    """Fold 16 rows `x` into the plane list `acc` ([ones, twos, fours,
+    eights, p16, p32, ...]; plane i has weight 2^i)."""
+    ones, twos, fours, eights = acc[:TIERS]
+    ones, t0 = _csa(ones, x[0], x[1])
+    ones, t1 = _csa(ones, x[2], x[3])
+    twos, f0 = _csa(twos, t0, t1)
+    ones, t0 = _csa(ones, x[4], x[5])
+    ones, t1 = _csa(ones, x[6], x[7])
+    twos, f1 = _csa(twos, t0, t1)
+    fours, e0 = _csa(fours, f0, f1)
+    ones, t0 = _csa(ones, x[8], x[9])
+    ones, t1 = _csa(ones, x[10], x[11])
+    twos, f0 = _csa(twos, t0, t1)
+    ones, t0 = _csa(ones, x[12], x[13])
+    ones, t1 = _csa(ones, x[14], x[15])
+    twos, f1 = _csa(twos, t0, t1)
+    fours, e1 = _csa(fours, f0, f1)
+    eights, carry = _csa(eights, e0, e1)
+    # ripple the weight-16 carry into the binary counter planes
+    high = []
+    for plane in acc[TIERS:]:
+        high.append(plane ^ carry)
+        carry = plane & carry
+    return [ones, twos, fours, eights] + high
 
 
-@functools.partial(
-    jax.jit, static_argnames=("batch", "n_high", "interpret")
-)
-def _hs_planes(
-    rows: jax.Array,  # [B * n_blocks * 16, S, 128] uint32 gathered rows
-    batch: int,
-    n_high: int,
-    interpret: bool = False,
-) -> jax.Array:  # [B, TIERS + n_high, S, 128] uint32, plane i weight 2^i
-    total, sublanes, lanes = rows.shape
-    n_blocks = total // batch // HS_BLOCK
-    n_planes = TIERS + n_high
-    grid = (batch, n_blocks)
-    return pl.pallas_call(
-        _hs_kernel(n_high),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(
-                (HS_BLOCK, sublanes, lanes),
-                lambda b, k: (b * n_blocks + k, 0, 0),
-                memory_space=pltpu.VMEM,
-            )
-        ],
-        out_specs=pl.BlockSpec(
-            (1, n_planes, sublanes, lanes),
-            lambda b, k: (b, 0, 0, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        out_shape=jax.ShapeDtypeStruct(
-            (batch, n_planes, sublanes, lanes), jnp.uint32
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((n_planes, sublanes, lanes), jnp.uint32)
-        ],
-        interpret=interpret,
-    )(rows)
-
-
-def _hs_kernel_fused(n_high: int):
-    """Harley-Seal 16-block kernel, fused-gather variant: the 16 rows
-    arrive as 16 separate (1, S, 128) input blocks whose index maps read
-    the scalar-prefetched k-mer ids — the rows stream from the kmer-major
-    matrix in HBM straight into the VMEM pipeline, never materializing the
-    [B * K_pad, Nw] gathered copy (halves the stage's HBM traffic).
-
-    Steps past the query's real k-mer count (`ksteps_ref`) skip the whole
-    fold: the kernel is VPU-bound, and sticky k_pad high-watering makes
-    ~20-30% of steps pure padding on typical workloads. Padded slots all
-    index the PAD_ROW block, so consecutive padded steps present identical
-    block indices and the pipeline elides their copies."""
-
-    def kernel(idx_ref, ksteps_ref, *refs):
-        # refs: 16 row refs [1, S, 128], out_ref, acc scratch
-        rows = refs[:HS_BLOCK]
-        out_ref = refs[HS_BLOCK]
-        acc = refs[HS_BLOCK + 1]
-        b = pl.program_id(0)
-        k = pl.program_id(1)
-        n_k = pl.num_programs(1)
-
-        @pl.when(k == 0)
-        def _():
-            acc[...] = jnp.zeros_like(acc)
-
-        @pl.when(k < ksteps_ref[b])
-        def _():
-            x = [rows[i][0] for i in range(HS_BLOCK)]
-            ones, twos = acc[0], acc[1]
-            fours, eights = acc[2], acc[3]
-
-            ones, t0 = _csa(ones, x[0], x[1])
-            ones, t1 = _csa(ones, x[2], x[3])
-            twos, f0 = _csa(twos, t0, t1)
-            ones, t0 = _csa(ones, x[4], x[5])
-            ones, t1 = _csa(ones, x[6], x[7])
-            twos, f1 = _csa(twos, t0, t1)
-            fours, e0 = _csa(fours, f0, f1)
-            ones, t0 = _csa(ones, x[8], x[9])
-            ones, t1 = _csa(ones, x[10], x[11])
-            twos, f0 = _csa(twos, t0, t1)
-            ones, t0 = _csa(ones, x[12], x[13])
-            ones, t1 = _csa(ones, x[14], x[15])
-            twos, f1 = _csa(twos, t0, t1)
-            fours, e1 = _csa(fours, f0, f1)
-            eights, sixteens = _csa(eights, e0, e1)
-
-            acc[0], acc[1], acc[2], acc[3] = ones, twos, fours, eights
-            carry = sixteens
-            for p in range(n_high):
-                plane = acc[TIERS + p]
-                acc[TIERS + p] = plane ^ carry
-                carry = plane & carry
-
-        @pl.when(k == n_k - 1)
-        def _():
-            out_ref[0] = acc[...]
-
-    return kernel
-
-
-@functools.partial(
-    jax.jit, static_argnames=("n_high", "interpret")
-)
-def _hs_planes_fused(
-    kmer_idx: jax.Array,  # [B, K_pad] int32 (PAD_ROW-padded)
-    ksteps: jax.Array,  # [B] int32 real fold steps (rest skipped)
-    kmer_major3: jax.Array,  # [65537, S, 128] uint32
-    n_high: int,
-    interpret: bool = False,
-) -> jax.Array:  # [B, TIERS + n_high, S, 128] uint32
+@functools.partial(jax.jit, static_argnames=("n_high",))
+def fold_planes_jnp(kmer_idx, kmer_major, n_high: int):
+    """Plain jnp fold: [B, K_pad] ids x [65537, Nw] -> [B, P, Nw] planes."""
     B, k_pad = kmer_idx.shape
-    _, sublanes, lanes = kmer_major3.shape
-    n_blocks = k_pad // HS_BLOCK
-    n_planes = TIERS + n_high
-    grid = (B, n_blocks)
-    row_specs = [
-        pl.BlockSpec(
-            (1, sublanes, lanes),
-            # i=i binds the row slot; idx is the scalar-prefetched ref
-            lambda b, k, idx, ks, i=i: (idx[b, k * HS_BLOCK + i], 0, 0),
-            memory_space=pltpu.VMEM,
-        )
-        for i in range(HS_BLOCK)
-    ]
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=grid,
-        in_specs=row_specs,
-        out_specs=pl.BlockSpec(
-            (1, n_planes, sublanes, lanes),
-            lambda b, k, idx, ks: (b, 0, 0, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((n_planes, sublanes, lanes), jnp.uint32)
-        ],
+    nw = kmer_major.shape[1]
+    blocks = kmer_idx.reshape(B, k_pad // HS_BLOCK, HS_BLOCK).transpose(1, 0, 2)
+
+    def step(acc, ids):  # ids [B, 16]
+        rows = kmer_major[ids]  # [B, 16, Nw]
+        acc = _hs_block(list(acc), [rows[:, i] for i in range(HS_BLOCK)])
+        return tuple(acc), None
+
+    acc0 = tuple(
+        jnp.zeros((B, nw), jnp.uint32) for _ in range(TIERS + n_high)
     )
-    return pl.pallas_call(
-        _hs_kernel_fused(n_high),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct(
-            (B, n_planes, sublanes, lanes), jnp.uint32
-        ),
-        interpret=interpret,
-    )(kmer_idx, ksteps, *([kmer_major3] * HS_BLOCK))
+    acc, _ = jax.lax.scan(step, acc0, blocks)
+    return jnp.stack(acc, axis=1)
 
 
-BLOCK_SUB = 8  #: sublanes per sparse-fold block (Mosaic u32 min tile)
-BLOCK_REFS = BLOCK_SUB * LANE * WORD_BITS  #: references per block (32768)
-PAIRS_PER_STEP = 16  #: (k-mer, block) pairs folded per sparse grid step
-
-
-def _sparse_kernel(n_planes: int, block_sub: int = BLOCK_SUB):
-    """Block-sparse ripple-carry fold.
-
-    Each grid step streams PAIRS_PER_STEP postings sub-rows — the
-    (k-mer, reference-block) pairs with at least one posting — and adds
-    each as a 1-bit increment into the query's binary counter planes at
-    its block's sublane offset. The accumulator (the full [P, S, 128]
-    plane set of one query) lives in VMEM across the whole pair list.
-
-    Versus the dense Harley-Seal fold this pays ~2·P ops per word instead
-    of ~5.6, but touches ONLY the blocks that contain postings: on
-    lineage-sorted databases postings cluster into a few blocks per k-mer
-    (the reference's inverted index walks exactly those entries,
-    src/raxtax.rs:58-64), so HBM traffic drops by the postings' blockwise
-    sparsity factor (~10-50x at the 1M-reference scale).
-    """
-
-    def kernel(kidx_ref, bidx_ref, psteps_ref, *refs):
-        rows = refs[:PAIRS_PER_STEP]
-        out_ref = refs[PAIRS_PER_STEP]
-        acc = refs[PAIRS_PER_STEP + 1]
+def _fold_kernel(n_high: int, tile: int, nw: int):
+    def kernel(idx_ref, steps_ref, km_ref, out_ref):
         b = pl.program_id(0)
-        step = pl.program_id(1)
-        n_steps = pl.num_programs(1)
+        t = pl.program_id(1)
+        cols = pl.ds(t * tile, tile)
+        mask = (t * tile + jnp.arange(tile, dtype=jnp.int32)) < nw
 
-        @pl.when(step == 0)
-        def _():
-            acc[...] = jnp.zeros_like(acc)
+        def body(k, acc):
+            x = [
+                plt.load(
+                    km_ref.at[idx_ref[b, k * HS_BLOCK + i], cols],
+                    mask=mask, other=0,
+                )
+                for i in range(HS_BLOCK)
+            ]
+            return tuple(_hs_block(list(acc), x))
 
-        @pl.when(step < psteps_ref[b])
-        def _():
-            for i in range(PAIRS_PER_STEP):
-                blk = bidx_ref[b, step * PAIRS_PER_STEP + i]
-                off = blk * block_sub
-                carry = rows[i][0]
-                for p in range(n_planes):
-                    cur = acc[p, pl.ds(off, block_sub), :]
-                    acc[p, pl.ds(off, block_sub), :] = cur ^ carry
-                    carry = cur & carry
-
-        @pl.when(step == n_steps - 1)
-        def _():
-            out_ref[0] = acc[...]
+        acc0 = tuple(
+            jnp.zeros((tile,), jnp.uint32) for _ in range(TIERS + n_high)
+        )
+        # only the query's real 16-row blocks; padding blocks are skipped
+        acc = jax.lax.fori_loop(0, steps_ref[b], body, acc0)
+        for p, plane in enumerate(acc):
+            plt.store(out_ref.at[b, p, cols], plane, mask=mask)
 
     return kernel
 
 
-@functools.partial(
-    jax.jit, static_argnames=("n_high", "interpret", "block_sub")
-)
-def _sparse_planes(
-    pair_kmer: jax.Array,  # [B, P_pad] int32 k-mer row ids (PAD_ROW-padded)
-    pair_blk: jax.Array,  # [B, P_pad] int32 block ids (0 for padding)
-    psteps: jax.Array,  # [B] int32 real fold steps (rest skipped)
-    kmer_major3: jax.Array,  # [65537, S, 128] uint32, S % block_sub == 0
-    n_high: int,
-    interpret: bool = False,
-    block_sub: int = BLOCK_SUB,
-) -> jax.Array:  # [B, TIERS + n_high, S, 128] uint32 binary counter planes
-    B, p_pad = pair_kmer.shape
-    _, S, lanes = kmer_major3.shape
-    n_steps = p_pad // PAIRS_PER_STEP
-    n_planes = TIERS + n_high
-    grid = (B, n_steps)
-    row_specs = [
-        pl.BlockSpec(
-            (1, block_sub, lanes),
-            # kidx picks the postings row, bidx the 8-sublane block in it
-            lambda b, s, kidx, bidx, ps, i=i: (
-                kidx[b, s * PAIRS_PER_STEP + i],
-                bidx[b, s * PAIRS_PER_STEP + i],
-                0,
-            ),
-            memory_space=pltpu.VMEM,
-        )
-        for i in range(PAIRS_PER_STEP)
-    ]
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=grid,
-        in_specs=row_specs,
-        out_specs=pl.BlockSpec(
-            (1, n_planes, S, lanes),
-            lambda b, s, kidx, bidx, ps: (b, 0, 0, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        scratch_shapes=[pltpu.VMEM((n_planes, S, lanes), jnp.uint32)],
-    )
+@functools.partial(jax.jit, static_argnames=("n_high", "interpret"))
+def _fold_triton(kmer_idx, kmer_major, n_high: int, interpret=False):
+    """Pallas-Triton fold: [B, K_pad] ids -> [B, P, Nw] planes."""
+    B = kmer_idx.shape[0]
+    # real 16-row blocks per query (ids first, PAD_ROW after)
+    real = (kmer_idx != PAD_ROW).sum(axis=1, dtype=jnp.int32)
+    steps = (real + HS_BLOCK - 1) // HS_BLOCK
+    nw = kmer_major.shape[1]
+    tile = min(FOLD_TILE, 1 << max(nw - 1, 0).bit_length())
     return pl.pallas_call(
-        _sparse_kernel(n_planes, block_sub),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((B, n_planes, S, lanes), jnp.uint32),
+        _fold_kernel(n_high, tile, nw),
+        out_shape=jax.ShapeDtypeStruct(
+            (B, TIERS + n_high, nw), jnp.uint32
+        ),
+        grid=(B, pl.cdiv(nw, tile)),
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=4, num_stages=1),
         interpret=interpret,
-    )(pair_kmer, pair_blk, psteps, *([kmer_major3] * PAIRS_PER_STEP))
+        name="postings_fold",
+    )(kmer_idx, steps, kmer_major)
 
 
-def prepare_kmer_major_sparse(db, block_sub: int = BLOCK_SUB):
-    """Device matrix + block CSR for the block-sparse fold.
-
-    Returns (kmer_major3 [65537, S, 128] u32 on device with S padded to a
-    BLOCK_SUB multiple, blk_ptr int64 [65538], blk_ids int32 [nnz]) where
-    blk_ids[blk_ptr[k]:blk_ptr[k+1]] lists the blocks of k-mer k with at
-    least one posting. The CSR is the blockwise image of the reference's
-    inverted index (src/tree.rs:52, 114-123).
-    """
-    km = db.kmer_major
-    pad = (-km.shape[1]) % (LANE * block_sub)
-    if pad:
-        km = np.pad(km, ((0, 0), (0, pad)))
-    km3 = km.reshape(km.shape[0], -1, LANE)
-    n_blocks = km3.shape[1] // block_sub
-    # one streaming pass over the matrix: nonzero mask per (kmer, block)
-    nz = km.reshape(km.shape[0], n_blocks, -1).any(axis=2)
-    nz[PAD_ROW, :] = False  # the all-zero padding row has no blocks
-    blk_ptr = np.zeros(km.shape[0] + 1, np.int64)
-    np.cumsum(nz.sum(axis=1, dtype=np.int64), out=blk_ptr[1:])
-    blk_ids = np.nonzero(nz)[1].astype(np.int32)
-    return jnp.asarray(km3), blk_ptr, blk_ids
-
-
-def build_pairs(
-    kmer_idx: np.ndarray,  # [B, K_pad] int32, PAD_ROW-padded
-    blk_ptr: np.ndarray,
-    blk_ids: np.ndarray,
-    budget: int,
-) -> tuple[np.ndarray, np.ndarray, int, np.ndarray] | None:
-    """(pair_kmer [B, P_pad], pair_blk [B, P_pad], max_pairs, totals [B]),
-    or None when some query's pair count exceeds `budget` (caller falls
-    back to the dense fold). Padding pairs point at the all-zero PAD_ROW /
-    block 0 (arithmetic no-ops, and skipped entirely by the kernel's
-    per-query step gate)."""
-    B, _ = kmer_idx.shape
-    starts = blk_ptr[kmer_idx]
-    counts = (blk_ptr[kmer_idx + 1] - starts).astype(np.int64)
-    totals = counts.sum(axis=1)
-    max_pairs = int(totals.max(initial=0))
-    if max_pairs > budget:
-        return None
-    p_pad = max(PAIRS_PER_STEP, _ceil_to(max_pairs, PAIRS_PER_STEP))
-    pair_kmer = np.full((B, p_pad), PAD_ROW, np.int32)
-    pair_blk = np.zeros((B, p_pad), np.int32)
-    for b in range(B):
-        c = counts[b]
-        nz = np.nonzero(c)[0]
-        if nz.size == 0:
-            continue
-        # concatenated CSR ranges of this query's k-mers
-        reps = c[nz]
-        offs = np.repeat(starts[b, nz], reps)
-        within = np.arange(int(totals[b])) - np.repeat(
-            np.cumsum(reps) - reps, reps
-        )
-        pair_blk[b, : totals[b]] = blk_ids[offs + within]
-        pair_kmer[b, : totals[b]] = np.repeat(
-            kmer_idx[b, nz].astype(np.int32), reps
-        )
-    return pair_kmer, pair_blk, max_pairs, totals
-
-
-def _ceil_to(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def intersection_planes_sparse(
-    pair_kmer: np.ndarray,  # [B, P_pad] int32 from build_pairs
-    pair_blk: np.ndarray,  # [B, P_pad] int32
-    kmer_major3: jax.Array,  # from prepare_kmer_major_sparse
-    max_count: int,
-    interpret: bool | None = None,
-    block_sub: int = BLOCK_SUB,
-    totals: np.ndarray | None = None,  # [B] real pair counts from build_pairs
-) -> jax.Array:  # [B, P, S, 128] uint32 binary counter planes
-    """Block-sparse variant of :func:`intersection_planes_pallas`: identical
-    output planes, HBM traffic proportional to the postings' blockwise
-    occupancy instead of |k-mers| x num_tips.
-
-    `totals` lets the kernel skip steps past each query's real pair count —
-    pair counts vary widely across a batch, so the skip typically removes
-    far more work here than in the dense fold."""
-    if interpret is None:
-        interpret = jax.devices()[0].platform != "tpu"
-    n_high = max(int(np.ceil(np.log2(max_count + 1))) - TIERS, 1)
-    B, p_pad = np.asarray(pair_kmer).shape
-    if totals is None:
-        psteps = np.full(B, p_pad // PAIRS_PER_STEP, np.int32)
-    else:
-        psteps = (
-            -(-np.asarray(totals, np.int64) // PAIRS_PER_STEP)
-        ).astype(np.int32)
-    return _sparse_planes(
-        jnp.asarray(pair_kmer),
-        jnp.asarray(pair_blk),
-        jnp.asarray(psteps),
-        kmer_major3,
-        n_high,
-        interpret,
-        block_sub,
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("num_tips",))
-def _planes_to_counts(planes: jax.Array, num_tips: int):
-    """[B, P, S, 128] u32 planes (plane i weight 2^i) -> [B, num_tips] f32."""
-    B, n_planes = planes.shape[0], planes.shape[1]
-    flat = planes.reshape(B, n_planes, -1)
-    shifts = jnp.arange(WORD_BITS, dtype=jnp.uint32)
-    acc = jnp.zeros((B, flat.shape[-1], WORD_BITS), dtype=jnp.uint16)
-    for p in range(n_planes):
-        bits = ((flat[:, p, :, None] >> shifts) & jnp.uint32(1)).astype(
-            jnp.uint16
-        )
-        acc = acc + (bits << p)
-    return acc.reshape(B, -1)[:, :num_tips].astype(jnp.float32)
-
-
-def prepare_kmer_major(db, fused_gather: bool | None = None) -> jax.Array:
-    """Device copy of the kmer-major matrix, lane-padded so the word count
-    is a multiple of 128.
-
-    Layout is decided HERE because the 2-D and 3-D TPU tilings are
-    physically different and a device-side reshape would relayout-copy the
-    multi-GB matrix:
-
-    - XLA-gather path (default): 2-D [65537, Nw'] — gathering from a 3-D
-      view makes XLA materialize a full layout copy inside the gather
-      program (OOM at the 1M-reference scale); the gathered rows (small)
-      are reshaped to (sublane, lane) tiles instead.
-    - fused-gather path (RAXTAX_FUSED_GATHER=1): 3-D [65537, S, 128] so
-      the Pallas block index maps can DMA (1, S, 128) row blocks directly.
-    """
-    if fused_gather is None:
-        fused_gather = _fused_gather_env()
+def prepare_kmer_major(db) -> jax.Array:
+    """Device copy of the kmer-major matrix [65537, Nw'], lane-padded so the
+    word count is a multiple of 128 (the planes' [S, 128] view)."""
     km = db.kmer_major
     pad = (-km.shape[1]) % LANE
     if pad:
         km = np.pad(km, ((0, 0), (0, pad)))
-    if fused_gather:
-        return jnp.asarray(km.reshape(km.shape[0], -1, LANE))
     return jnp.asarray(km)
 
 
-@functools.partial(jax.jit, static_argnames=("n_high", "interpret"))
-def _planes_once(kmer_idx, kmer_major, n_high, interpret):
-    rows = kmer_major[kmer_idx.reshape(-1)]  # XLA gather, [B*K_pad, Nw']
-    rows = rows.reshape(rows.shape[0], -1, LANE)  # tile the gathered rows
-    return _hs_planes(
-        rows, batch=kmer_idx.shape[0], n_high=n_high, interpret=interpret
+def fold_planes(kmer_idx, kmer_major, n_high: int, interpret: bool = False):
+    """[B, K_pad] ids (real ids first, PAD_ROW after) -> [B, P, Nw] planes
+    by the route of :func:`~raxtax_tpu.utils.jaxcfg.kernel_route`. The
+    kernel skips each query's padding blocks; the jnp version folds the
+    all-zero padding rows instead (a no-op)."""
+    route = kernel_route(interpret)
+    if route == "jnp":
+        return fold_planes_jnp(kmer_idx, kmer_major, n_high)
+    return _fold_triton(
+        kmer_idx, kmer_major, n_high, interpret=route == "interpret"
     )
 
 
-def intersection_planes_pallas(
+def intersection_planes(
     kmer_idx: np.ndarray,  # [B, K_pad] int32, padded with PAD_ROW
     kmer_major: jax.Array,  # prepared by prepare_kmer_major
     max_count: int | None = None,
-    interpret: bool | None = None,
-    gather_budget_bytes: int = 1 << 30,
-    kcounts: np.ndarray | None = None,  # [B] real distinct-k-mer counts
+    interpret: bool = False,
 ) -> jax.Array:  # [B, TIERS + n_high, S, 128] uint32 counter planes
     """Counter planes of the intersection counts (no dense expansion).
 
-    The planes ARE the count representation consumed by the fused kernels
-    in ops/planes.py (histogram, table lookup, overflow extraction) — the
-    [B, num_tips] count matrix of round 1 is never materialized.
-
-    The fused-gather variant streams postings rows straight from HBM into
-    the fold via scalar-prefetched block index maps instead of
-    materializing the XLA-gathered row copy (halves the stage's HBM
-    traffic). It is selected by the LAYOUT of `kmer_major` — 3-D means
-    `prepare_kmer_major` was built for fused mode (RAXTAX_FUSED_GATHER=1).
-
-    `kcounts` (fused path only) lets the kernel skip the fold on padding
-    steps past each query's real k-mer count — the sticky k_pad
-    high-water bucketing makes ~20-30% of steps pure padding on typical
-    workloads, and the kernel is VPU-bound.
+    The planes ARE the count representation consumed by ops/planes.py
+    (histogram, table lookup, overflow extraction) — the [B, num_tips]
+    count matrix is never materialized.
     """
-    if interpret is None:
-        interpret = jax.devices()[0].platform != "tpu"
     kmer_idx = np.asarray(kmer_idx)
     B, k_pad = kmer_idx.shape
-    assert k_pad % HS_BLOCK == 0
-    max_count = max_count if max_count is not None else k_pad
-    n_high = max(int(np.ceil(np.log2(max_count + 1))) - TIERS, 1)
-    if kmer_major.ndim == 3:
-        if kcounts is None:
-            ksteps = np.full(B, k_pad // HS_BLOCK, np.int32)
-        else:
-            ksteps = -(-np.asarray(kcounts, np.int64) // HS_BLOCK)
-            ksteps = ksteps.astype(np.int32)
-        return _hs_planes_fused(
-            jnp.asarray(kmer_idx), jnp.asarray(ksteps), kmer_major,
-            n_high, interpret,
+    if k_pad % HS_BLOCK:  # whole Harley-Seal blocks of all-zero rows
+        kmer_idx = np.pad(
+            kmer_idx, ((0, 0), (0, (-k_pad) % HS_BLOCK)),
+            constant_values=PAD_ROW,
         )
-    # chunk the query batch so the gathered rows stay under the HBM budget
-    row_bytes = int(np.prod(kmer_major.shape[1:])) * 4
-    b_sub = max(1, min(B, gather_budget_bytes // (k_pad * row_bytes)))
-    outs = []
-    for lo in range(0, B, b_sub):
-        chunk = kmer_idx[lo : lo + b_sub]
-        if chunk.shape[0] < b_sub:
-            chunk = np.pad(
-                chunk,
-                ((0, b_sub - chunk.shape[0]), (0, 0)),
-                constant_values=PAD_ROW,
-            )
-        outs.append(
-            _planes_once(jnp.asarray(chunk), kmer_major, n_high, interpret)
-        )
-    planes = jnp.concatenate(outs, axis=0) if len(outs) > 1 else outs[0]
-    return planes[:B]
-
-
-def intersection_counts_pallas(
-    kmer_idx: np.ndarray,  # [B, K_pad] int32, padded with PAD_ROW
-    kmer_major: jax.Array,  # prepared by prepare_kmer_major
-    num_tips: int,
-    max_count: int | None = None,
-    interpret: bool | None = None,
-    gather_budget_bytes: int = 1 << 30,
-) -> jax.Array:  # [B, num_tips] f32
-    planes = intersection_planes_pallas(
-        kmer_idx, kmer_major, max_count, interpret, gather_budget_bytes
+    assert kmer_major.shape[1] % LANE == 0
+    n_high = n_high_planes(max_count if max_count is not None else k_pad)
+    planes = fold_planes(
+        jnp.asarray(kmer_idx), kmer_major, n_high, interpret=interpret
     )
-    return _planes_to_counts(planes, num_tips)
+    return planes.reshape(B, planes.shape[1], -1, LANE)

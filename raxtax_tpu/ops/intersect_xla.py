@@ -1,16 +1,16 @@
-"""XLA intersection-count path: bit-unpack + one-hot matmul on the MXU.
+"""XLA intersection-count path: bit-unpack + one-hot matmul.
 
 Replaces the reference's inverted-index scatter-add hot loop
-(reference: src/raxtax.rs:54-64) with its dense TPU dual:
+(reference: src/raxtax.rs:54-64) with a dense dual:
 
     counts[b, n] = popcount(query_bits[b] & ref_bits[n])
                  = Q_onehot[b, :] . R_onehot[n, :]
 
-The 65,536-wide one-hot vectors are never materialized in HBM: the packed
-uint32 rows are unpacked slab-by-slab inside a `lax.scan` and contracted on
-the MXU in bfloat16 with f32 accumulation — exact for integer counts up to
-2^24. FLOPs are 2·B·65536·N per batch; HBM traffic is one streaming pass
-over the packed matrices per batch.
+The 65,536-wide one-hot vectors are never materialized in device memory:
+the packed uint32 rows are unpacked slab-by-slab inside a `lax.scan` and
+contracted in bfloat16 with f32 accumulation — exact for integer counts up
+to 2^24. FLOPs are 2·B·65536·N per batch, so this path suits small
+databases and the CPU; the GPU default is the postings fold (``pallas``).
 """
 
 from __future__ import annotations

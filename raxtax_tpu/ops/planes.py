@@ -1,35 +1,22 @@
-"""Fused kernels over Harley-Seal counter planes.
+"""Stages over Harley-Seal counter planes.
 
-The intersection kernel (ops/intersect_pallas.py) accumulates per-tip
-intersection counts as *bit-sliced counter planes*: ``planes[b, p, s, lane]``
-holds bit ``2^p`` of the count of tip ``n = (s*128 + lane)*32 + bit``. Round 1
-expanded these planes into a dense ``[B, N] f32`` count matrix in HBM and ran
-histogramming / probability-table gathers as separate XLA passes over it —
-at the 1M-reference scale that materialized gigabytes of one-hot temporaries
-per batch and set the throughput plateau (VERDICT round 1, item 1).
-
-These kernels consume the planes directly, so the count matrix never exists:
+The postings fold (ops/intersect_pallas.py) accumulates per-tip intersection
+counts as *bit-sliced counter planes*: ``planes[b, p, s, lane]`` holds bit
+``2^p`` of the count of the tip stored at word ``w = s*128 + lane``, bit
+position ``bit`` of that word (packed layout: tip ``w*32 + bit``; flat
+layout: tip ``bit*W + w``). The dense ``[B, N]`` count matrix never reaches
+device memory as a stored array: each stage below decodes the planes inside
+its own XLA fusion.
 
 - :func:`planes_histogram` — intersection-size histogram
-  (reference: src/prob.rs:13-19) straight from the planes;
+  (reference: src/prob.rs:13-19): decode, then an exact bf16 one-hot outer
+  product (ops/histogram.py), chunked over tips;
 - :func:`planes_probs` — per-tip probability lookup
   ``probs[n] = table[b, count[n]]`` (reference: src/lineage.rs:62-67) as a
-  fused decode + two-stage one-hot MXU gather, emitted in bit-major layout
-  ``[B, 32, S, 128]`` (one cheap XLA transpose recovers tip order);
-- :func:`planes_overflow` — the ``count > 15`` overflow values used by the
-  compressed device->host wire format (ops/compress.py).
-
-All three share the same decode: for each of the 32 bit positions of a plane
-word, ``c = sum_p ((plane_p >> bit) & 1) << p`` — a handful of VPU ops per
-word versus a full dense expansion.
-
-Counts are bucketed with the same ``s = 32*hi + lo`` outer-product trick as
-the round-1 XLA histogram, but on VMEM-resident tiles: one-hot hi/lo masks
-contract on the MXU into a ``[n_hi, 32]`` accumulator that lives in scratch
-across the whole reference axis. Exactness: every one-hot row selects at
-most one 1.0, and bucket totals stay below 2^24, so f32 accumulation is
-exact; ``precision=HIGHEST`` makes the MXU pass bit-exact for the f32 table
-values.
+  decode plus a per-query ``take_along_axis`` of the small table, emitted in
+  bit-major layout ``[B, 32, S, 128]``;
+- :func:`planes_high_counts` — the ``count > 15`` values used by the
+  compressed count representation (ops/compress.py).
 """
 
 from __future__ import annotations
@@ -38,86 +25,31 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-LO = 32  #: low-radix of the s = 32*hi + lo histogram split
+from .histogram import intersection_histogram
+
 WORD_BITS = 32
 
 
-def _decode_bit(planes, bit, n_planes: int):
-    """counts of the `bit`-th tip of each word: [S_t, 128] int32.
-
-    `bit` may be a traced scalar — the per-bit work runs under a
-    `fori_loop` so the (large, lane-padded) one-hot temporaries of one bit
-    are dead before the next bit's are allocated.
-    """
-    c = jnp.zeros_like(planes[0], dtype=jnp.int32)
-    one = jnp.uint32(1)
-    bit = jnp.uint32(bit)
-    for p in range(n_planes):
-        c = c | (((planes[p] >> bit) & one) << p).astype(jnp.int32)
+def decode_counts(planes: jax.Array, n_planes: int | None = None):
+    """[B, P, S, 128] u32 planes -> [B, 32, S, 128] int32 bit-major counts
+    from the low `n_planes` planes (all by default)."""
+    n = planes.shape[1] if n_planes is None else n_planes
+    shift = jnp.arange(WORD_BITS, dtype=jnp.uint32)[None, :, None, None]
+    c = jnp.zeros(
+        (planes.shape[0], WORD_BITS) + planes.shape[2:], jnp.int32
+    )
+    for p in range(n):
+        bit = (planes[:, p, None] >> shift) & jnp.uint32(1)
+        c = c | (bit.astype(jnp.int32) << p)
     return c
 
 
-def _popcount_u32(x):
-    """SWAR popcount of each u32 lane word."""
-    m1 = jnp.uint32(0x55555555)
-    m2 = jnp.uint32(0x33333333)
-    m4 = jnp.uint32(0x0F0F0F0F)
-    x = x - ((x >> 1) & m1)
-    x = (x & m2) + ((x >> 2) & m2)
-    x = (x + (x >> 4)) & m4
-    return ((x * jnp.uint32(0x01010101)) >> 24).astype(jnp.int32)
-
-
-def _hist_kernel(n_planes: int, n_vals: int, s_total: int, st: int):
-    def kernel(planes_ref, out_ref, acc):
-        # planes_ref: [1, n_planes, st, 128] u32; out_ref/acc: SMEM [n_vals]
-        # i32 histogram. For each count value v, the tips with count == v
-        # are exactly the words where every plane bit matches v's bit — an
-        # AND chain over the (pre-complemented) planes, then a popcount.
-        # All ops run on full-lane [st, 128] u32 words: no transposes, no
-        # one-hot padding, no matmuls (VERDICT round-2 rewrite: the MXU
-        # formulation spent its time on lane-padded relayouts).
-        t = pl.program_id(1)
-        n_t = pl.num_programs(1)
-
-        @pl.when(t == 0)
-        def _():
-            for v in range(n_vals):
-                acc[v] = 0
-
-        planes = [planes_ref[0, p] for p in range(n_planes)]
-        comp = [~x for x in planes]
-        row = jax.lax.broadcasted_iota(jnp.int32, (st, 128), 0)
-        # words of the (ceil-divided) last tile beyond the real plane
-        # extent hold garbage: mask them out of every value's count
-        vmask = jnp.where(
-            (t * st + row) < s_total, jnp.uint32(0xFFFFFFFF), jnp.uint32(0)
-        )
-        for v in range(n_vals):
-            m = vmask
-            for p in range(n_planes):
-                m = m & (planes[p] if (v >> p) & 1 else comp[p])
-            acc[v] = acc[v] + jnp.sum(_popcount_u32(m))
-
-        @pl.when(t == n_t - 1)
-        def _():
-            for v in range(n_vals):
-                out_ref[0, 0, v] = acc[v]
-
-    return kernel
-
-
-@functools.partial(
-    jax.jit, static_argnames=("s_max", "num_tips", "interpret")
-)
+@functools.partial(jax.jit, static_argnames=("s_max", "num_tips"))
 def planes_histogram(
     planes: jax.Array,  # [B, P, S, 128] uint32 counter planes
     s_max: int,
     num_tips: int,
-    interpret: bool = False,
 ) -> jax.Array:  # [B, s_max] int32
     """Exact intersection-size histogram from counter planes.
 
@@ -125,335 +57,64 @@ def planes_histogram(
     [num_tips, S*128*32) are zero-padding; their spurious bucket-0 entries
     are subtracted here.
     """
-    B, n_planes, S, lanes = planes.shape
-    assert s_max % LO == 0
-    # counts have n_planes bits, so only 2^P buckets can be hit
-    n_vals = min(s_max, 1 << n_planes)
-    st = min(S, 64)
-    n_t = pl.cdiv(S, st)
-    hist = pl.pallas_call(
-        _hist_kernel(n_planes, n_vals, S, st),
-        grid=(B, n_t),
-        in_specs=[
-            pl.BlockSpec(
-                (1, n_planes, st, lanes),
-                lambda b, t: (b, 0, t, 0),
-                memory_space=pltpu.VMEM,
-            )
-        ],
-        out_specs=pl.BlockSpec(
-            (1, 1, n_vals), lambda b, t: (b, 0, 0), memory_space=pltpu.SMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((B, 1, n_vals), jnp.int32),
-        scratch_shapes=[pltpu.SMEM((n_vals,), jnp.int32)],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024
-        ),
-        interpret=interpret,
-    )(planes)
-    hist = hist.reshape(B, n_vals)
-    if n_vals < s_max:
-        hist = jnp.pad(hist, ((0, 0), (0, s_max - n_vals)))
+    B, _, S, lanes = planes.shape
+    counts = decode_counts(planes).reshape(B, -1)
+    hist = intersection_histogram(counts, s_max)
     pad = S * lanes * WORD_BITS - num_tips
     return hist.at[:, 0].add(-pad)
 
 
-def _probs_kernel(
-    n_planes: int, mux_bits: int, s_total: int, st: int,
-    zero_high: bool = False,
-):
-    n_vals = 1 << mux_bits
-
-    def kernel(planes_ref, table_ref, out_ref):
-        # planes_ref: [1, n_planes, st, 128] u32
-        # table_ref:  SMEM [1, n_vals] f32 (query b's per-size table,
-        #             zero-padded to the 2^P mux leaves)
-        # out_ref:    [1, 32, st, 128] f32 (bit-major per-tip probabilities)
-        #
-        # The per-tip lookup probs = table[count] is a binary multiplexer
-        # tree over the table entries, keyed directly on the count's plane
-        # BITS — no decode, no one-hot, no matmul, no transposes; every op
-        # is a full-lane [st, 128] select between scalar broadcasts (level
-        # 0) or previous-level vectors. 2^P - 1 selects per word-bit, exact
-        # f32 (pure selection).
-        t = pl.program_id(1)
-        planes = [planes_ref[0, p] for p in range(mux_bits)]
-        leaves = [table_ref[0, 0, v] for v in range(n_vals)]
-        high_or = None
-        if zero_high and mux_bits < n_planes:
-            # overflow tips (any count bit above the mux) decode to probs
-            # 0.0 — the caller covers them exactly from the overflow list
-            # (sideband), so no [B, N] fixup scatter is ever needed
-            high_or = planes_ref[0, mux_bits]
-            for p in range(mux_bits + 1, n_planes):
-                high_or = high_or | planes_ref[0, p]
-
-        def per_bit(bit, carry):
-            one = jnp.uint32(1)
-            b = jnp.uint32(bit)
-            masks = [((planes[p] >> b) & one) != 0 for p in range(mux_bits)]
-            sel = leaves
-            for p in range(mux_bits):
-                m = masks[p]
-                sel = [
-                    jnp.where(m, sel[2 * i + 1], sel[2 * i])
-                    for i in range(len(sel) // 2)
-                ]
-            out = sel[0]
-            if high_or is not None:
-                zero = jnp.zeros((), dtype=out.dtype)
-                out = jnp.where(((high_or >> b) & one) != 0, zero, out)
-            out_ref[0, bit] = out
-            return carry
-
-        jax.lax.fori_loop(0, WORD_BITS, per_bit, 0)
-
-    return kernel
-
-
-@functools.partial(
-    jax.jit, static_argnames=("mux_bits", "interpret", "zero_high")
-)
+@functools.partial(jax.jit, static_argnames=("mux_bits", "zero_high"))
 def planes_probs(
     planes: jax.Array,  # [B, P, S, 128] uint32
-    table: jax.Array,  # [B, s_max] f32 per-size probabilities
+    table: jax.Array,  # [B, s_max] per-size values (f32, or u32 halves)
     mux_bits: int | None = None,
-    interpret: bool = False,
-    zero_high: bool = False,  # overflow tips decode to 0.0 (see kernel)
-) -> jax.Array:  # [B, 32, S, 128] f32, bit-major
-    """probs[b, bit, s, lane] = table[b, count of tip (s*128+lane)*32+bit].
+    zero_high: bool = False,
+) -> jax.Array:  # [B, 32, S, 128] bit-major, dtype of `table`
+    """probs[b, bit, s, lane] = table[b, count of that tip].
 
-    `mux_bits` bounds the multiplexer depth: with mux_bits < P the kernel
-    muxes only the low `mux_bits` count bits — EXACT for counts below
-    2^mux_bits, WRONG for the (rare) larger counts, which the caller must
-    fix up from an overflow list (engine: the compress extraction's
-    (tip, count) pairs, scattered over the flat probs). Cuts the dominant
-    select chain from 2^P-1 to 2^mux_bits-1 ops per word-bit.
+    `mux_bits` bounds the lookup to the low `mux_bits` count bits: EXACT for
+    counts below 2^mux_bits, WRONG for larger counts, which the caller fixes
+    from an overflow list (engine: the compress extraction's (tip, count)
+    pairs). With `zero_high`, tips with any count bit at or above
+    `mux_bits` read 0 instead (the sideband carries their mass). Counts at
+    or above the table width read 0.
 
-    Tile-padding garbage decodes to arbitrary (finite) table entries; use
-    :func:`probs_to_tip_order` to recover the flat [B, N] layout — nothing
-    below `num_tips` ever reads the garbage tail.
-
-    Dtype-generic: the mux is a pure select network, so `table` may be
-    float32 OR uint32 (the exact-f64 pipeline muxes the bit HALVES of the
-    f64 table, ops/exactscan.py); the output dtype follows the table.
+    Dtype-generic: the lookup is a pure selection, so `table` may be f32 OR
+    u32 (the exact-f64 pipeline looks up the bit HALVES of the f64 table,
+    ops/exactscan.py).
     """
-    B, n_planes, S, lanes = planes.shape
-    if mux_bits is None:
-        mux_bits = n_planes
-    mux_bits = min(mux_bits, n_planes)
-    s_max = table.shape[1]
+    B, n_planes = planes.shape[:2]
+    mux_bits = n_planes if mux_bits is None else min(mux_bits, n_planes)
     n_vals = 1 << mux_bits
+    s_max = table.shape[1]
     if s_max < n_vals:
         table = jnp.pad(table, ((0, 0), (0, n_vals - s_max)))
-    else:
-        table = table[:, :n_vals]
-    st = min(S, 64)
-    n_t = pl.cdiv(S, st)
-    return pl.pallas_call(
-        _probs_kernel(n_planes, mux_bits, S, st, zero_high=zero_high),
-        grid=(B, n_t),
-        in_specs=[
-            pl.BlockSpec(
-                (1, n_planes, st, lanes),
-                lambda b, t: (b, 0, t, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (1, 1, n_vals),
-                lambda b, t: (b, 0, 0),
-                memory_space=pltpu.SMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, WORD_BITS, st, lanes),
-            lambda b, t: (b, 0, t, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        out_shape=jax.ShapeDtypeStruct(
-            (B, WORD_BITS, S, lanes), table.dtype
-        ),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024
-        ),
-        interpret=interpret,
-    )(planes, table.reshape(B, 1, n_vals))
+    counts = decode_counts(planes, mux_bits)
+    probs = jnp.take_along_axis(
+        table, counts.reshape(B, -1), axis=1, mode="clip"
+    ).reshape(counts.shape)
+    if zero_high and mux_bits < n_planes:
+        high = planes[:, mux_bits]
+        for p in range(mux_bits + 1, n_planes):
+            high = high | planes[:, p]
+        shift = jnp.arange(WORD_BITS, dtype=jnp.uint32)[None, :, None, None]
+        over = ((high[:, None] >> shift) & jnp.uint32(1)) != 0
+        probs = jnp.where(over, jnp.zeros((), probs.dtype), probs)
+    return probs
 
 
-def _dd_add2(a_hi, a_lo, b_hi, b_lo):
-    """TwoSum-compensated double-f32 add (mirrors ops/nodeconf.py)."""
-    s = a_hi + b_hi
-    bb = s - a_hi
-    err = (a_hi - (s - bb)) + (b_hi - bb)
-    return s, err + a_lo + b_lo
+@jax.jit
+def planes_high_counts(planes: jax.Array) -> jax.Array:
+    """Overflow counts (count > 15, else 0) in bit-major layout
+    [B, 32, S, 128] int32.
 
-
-def _dd_scan_kernel(nr_total: int, rows: int, bitmajor: bool = False):
-    def kernel(x_ref, hi_ref, lo_ref, c_hi, c_lo):
-        # x_ref: [1, rows, 128] f32 probs tile (element order row-major),
-        # or [1, 32, rows//32, 128] bit-major (bit, s, lane) when
-        # `bitmajor` — reordered to tip order in VMEM, which removes the
-        # global [B, N] permute pass between the probs kernel and the scan;
-        # hi/lo_ref: same-shaped cumsum planes; c_hi/c_lo: SMEM carry
-        t = pl.program_id(1)
-
-        @pl.when(t == 0)
-        def _():
-            c_hi[0] = 0.0
-            c_lo[0] = 0.0
-
-        if bitmajor:
-            # tip (s*128+lane)*32+bit: transpose to (s, lane, bit), whose
-            # row-major linear order IS tip order
-            x = x_ref[0].transpose(1, 2, 0).reshape(rows, 128)
-        else:
-            x = x_ref[0]
-        row = jax.lax.broadcasted_iota(jnp.int32, (rows, 128), 0)
-        valid = (t * rows + row) < nr_total
-        hi = jnp.where(valid, x, 0.0)
-        lo = jnp.zeros_like(hi)
-        # intra-row inclusive scan along lanes (shift-in-zero log steps;
-        # a (0,0) double-f32 add is an exact identity, so no masking)
-        for k in (1, 2, 4, 8, 16, 32, 64):
-            sh_hi = jnp.pad(hi, ((0, 0), (k, 0)))[:, :128]
-            sh_lo = jnp.pad(lo, ((0, 0), (k, 0)))[:, :128]
-            hi, lo = _dd_add2(hi, lo, sh_hi, sh_lo)
-        # row totals -> exclusive row offsets (log steps along sublanes).
-        # Mosaic can't shift 1-lane column vectors, so the totals stay
-        # broadcast across the full 128 lanes.
-        rt_hi = jnp.broadcast_to(hi[:, 127:128], (rows, 128))
-        rt_lo = jnp.broadcast_to(lo[:, 127:128], (rows, 128))
-        k = 1
-        while k < rows:
-            rt_hi2 = jnp.pad(rt_hi, ((k, 0), (0, 0)))[:rows]
-            rt_lo2 = jnp.pad(rt_lo, ((k, 0), (0, 0)))[:rows]
-            rt_hi, rt_lo = _dd_add2(rt_hi, rt_lo, rt_hi2, rt_lo2)
-            k <<= 1
-        off_hi = jnp.pad(rt_hi, ((1, 0), (0, 0)))[:rows]
-        off_lo = jnp.pad(rt_lo, ((1, 0), (0, 0)))[:rows]
-        hi, lo = _dd_add2(hi, lo, off_hi, off_lo)
-        # carry from the previous tiles of this query
-        hi, lo = _dd_add2(hi, lo, c_hi[0], c_lo[0])
-        hi_ref[0] = hi
-        lo_ref[0] = lo
-        c_hi[0] = hi[rows - 1, 127]
-        c_lo[0] = lo[rows - 1, 127]
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def dd_cumsum_pallas(probs: jax.Array, interpret: bool = False):
-    """Double-f32 inclusive cumsum of [B, N] f32 along axis 1 (N % 128 == 0).
-
-    One fused pass: ~1.5 GB of traffic and a few VPU ops per element,
-    versus the multi-pass XLA associative_scan (59 ms -> ~15 ms per
-    128 x 1M batch). Returns (hi, lo), each [B, N]; float64(hi)+float64(lo)
-    tracks the exact prefix sum to ~2^-48 (ops/nodeconf.py rationale).
+    Feeds the compressed wire format: the low nibble travels as the raw
+    tier planes (ones/twos/fours/eights), the rare >15 counts as an
+    index/value list extracted from this array.
     """
-    B, N = probs.shape
-    assert N % 128 == 0
-    nr = N // 128
-    x = probs.reshape(B, nr, 128)
-    # 1024-row tiles: the scan is DMA-issue bound, not VMEM bound — at 256
-    # rows a 1M x 128 batch was 3,968 grid steps of ~9 us mostly spent
-    # issuing three small copies (37 ms); 4x larger tiles amortize the
-    # issue cost (~13 ms) and still use < 4 MB of VMEM double-buffered
-    rows = min(nr, 1024)
-    n_t = pl.cdiv(nr, rows)
-    hi, lo = pl.pallas_call(
-        _dd_scan_kernel(nr, rows),
-        grid=(B, n_t),
-        in_specs=[
-            pl.BlockSpec(
-                (1, rows, 128), lambda b, t: (b, t, 0),
-                memory_space=pltpu.VMEM,
-            )
-        ],
-        out_specs=(
-            pl.BlockSpec(
-                (1, rows, 128), lambda b, t: (b, t, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (1, rows, 128), lambda b, t: (b, t, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((B, nr, 128), jnp.float32),
-            jax.ShapeDtypeStruct((B, nr, 128), jnp.float32),
-        ),
-        scratch_shapes=[
-            pltpu.SMEM((1,), jnp.float32),
-            pltpu.SMEM((1,), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024
-        ),
-        interpret=interpret,
-    )(x)
-    return hi.reshape(B, N), lo.reshape(B, N)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def dd_cumsum_pallas_bitmajor(
-    probs_bm: jax.Array,  # [B, 32, S, 128] f32 bit-major probs
-    interpret: bool = False,
-):
-    """Double-f32 inclusive cumsum in TIP order, fed directly from the
-    bit-major probs layout the planes kernel emits.
-
-    Identical scan arithmetic to :func:`dd_cumsum_pallas`; the (bit, s,
-    lane) -> tip reorder happens per tile inside VMEM, so the global
-    [B, N] permute (`probs_to_tip_order`, ~1 GB of HBM traffic per 1M x
-    128 batch) disappears. Returns (hi, lo), each [B, S*128*32].
-    """
-    B, nbits, S, lanes = probs_bm.shape
-    assert nbits == 32 and lanes == 128
-    N = S * lanes * nbits
-    nr = N // 128  # = S * 32
-    # 256 rows: the in-VMEM (32, rows//32, 128) -> (rows, 128) reorder
-    # lowers to a tpu.reshape that Mosaic only supports up to 8 sublane
-    # groups — (32, 32, 128) -> (1024, 128) is an "unsupported shape cast"
-    # compile error on real hardware (not caught in interpret mode)
-    rows = min(nr, 256)
-    assert rows % 32 == 0
-    n_t = pl.cdiv(nr, rows)
-    hi, lo = pl.pallas_call(
-        _dd_scan_kernel(nr, rows, bitmajor=True),
-        grid=(B, n_t),
-        in_specs=[
-            pl.BlockSpec(
-                (1, nbits, rows // 32, lanes),
-                lambda b, t: (b, 0, t, 0),
-                memory_space=pltpu.VMEM,
-            )
-        ],
-        out_specs=(
-            pl.BlockSpec(
-                (1, rows, 128), lambda b, t: (b, t, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (1, rows, 128), lambda b, t: (b, t, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((B, nr, 128), jnp.float32),
-            jax.ShapeDtypeStruct((B, nr, 128), jnp.float32),
-        ),
-        scratch_shapes=[
-            pltpu.SMEM((1,), jnp.float32),
-            pltpu.SMEM((1,), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024
-        ),
-        interpret=interpret,
-    )(probs_bm)
-    return hi.reshape(B, N), lo.reshape(B, N)
+    c = decode_counts(planes)
+    return jnp.where(c > 15, c, 0)
 
 
 @functools.partial(jax.jit, static_argnames=("layout",))
@@ -462,7 +123,7 @@ def zero_tips_in_planes(
 ) -> jax.Array:
     """Clear the counter bits of the given tips (per query).
 
-    `ids` is [B, E] int32 tip ids, -1-padded. The TPU dual of the
+    `ids` is [B, E] int32 tip ids, -1-padded. The device dual of the
     reference's `--skip-exact-matches` count zeroing (src/raxtax.rs:65-68):
     a cleared bit in every plane makes the decoded count 0. `layout`
     selects the tip -> (word, bit) mapping (bitmatrix.build_kmer_major).
@@ -488,7 +149,8 @@ def zero_tips_in_planes(
 
 
 def probs_to_tip_order(probs_bitmajor: jax.Array, num_tips: int) -> jax.Array:
-    """[B, 32, S, 128] bit-major probs -> [B, >=num_tips] in tip order.
+    """[B, 32, S, 128] bit-major probs (packed layout) -> [B, >=num_tips] in
+    tip order.
 
     Tip n = (s*128 + lane)*32 + bit, so tip order is (s, lane, bit): one
     transpose. The tail past `num_tips` is zero-padding (zero-count tips get
@@ -497,55 +159,3 @@ def probs_to_tip_order(probs_bitmajor: jax.Array, num_tips: int) -> jax.Array:
     """
     B = probs_bitmajor.shape[0]
     return probs_bitmajor.transpose(0, 2, 3, 1).reshape(B, -1)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def planes_high_counts(
-    planes: jax.Array,  # [B, P, S, 128] uint32
-    interpret: bool = False,
-) -> jax.Array:  # [B, 32, S, 128] int32 bit-major counts, 0 where <= 15
-    """Overflow counts (count > 15, else 0) in bit-major layout.
-
-    Feeds the compressed wire format: the low nibble travels as the raw
-    tier planes (ones/twos/fours/eights), the rare >15 counts as an
-    index/value list extracted from this array.
-    """
-    B, n_planes, S, lanes = planes.shape
-    st = min(S, 256)
-    n_t = pl.cdiv(S, st)
-
-    def kernel(planes_ref, out_ref):
-        t = pl.program_id(1)
-        planes_t = [planes_ref[0, p] for p in range(n_planes)]
-        row = jax.lax.broadcasted_iota(jnp.int32, (st, 128), 0)
-        valid = (t * st + row) < s_total_const
-
-        def per_bit(bit, carry):
-            c = _decode_bit(planes_t, bit, n_planes)
-            out_ref[0, bit] = jnp.where(valid & (c > 15), c, 0)
-            return carry
-
-        jax.lax.fori_loop(0, WORD_BITS, per_bit, 0)
-
-    s_total_const = S
-    return pl.pallas_call(
-        kernel,
-        grid=(B, n_t),
-        in_specs=[
-            pl.BlockSpec(
-                (1, n_planes, st, lanes),
-                lambda b, t: (b, 0, t, 0),
-                memory_space=pltpu.VMEM,
-            )
-        ],
-        out_specs=pl.BlockSpec(
-            (1, WORD_BITS, st, lanes),
-            lambda b, t: (b, 0, t, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        out_shape=jax.ShapeDtypeStruct((B, WORD_BITS, S, lanes), jnp.int32),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024
-        ),
-        interpret=interpret,
-    )(planes)

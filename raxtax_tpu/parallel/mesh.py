@@ -2,17 +2,19 @@
 
 The reference scales with a rayon work-stealing pool on one CPU
 (reference: src/raxtax.rs:36-37, SURVEY.md §2 parallelism inventory). The
-TPU-native dual is a 2-D `jax.sharding.Mesh`:
+device dual is a 2-D `jax.sharding.Mesh`:
 
 - ``data`` axis: query batches are data-parallel (the reference's only
   parallelism strategy);
 - ``model`` axis: the reference k-mer presence bit matrix — the "model" of
   this framework — is sharded by reference rows (tensor parallelism). Each
   shard computes partial intersection counts/histograms/node confidences;
-  partials merge with `psum` over ICI.
+  partials merge with `psum`.
 
-Everything runs under `jax.shard_map` with the compute kernels unchanged
-from the single-device path.
+Every card of a host reaches every other at the same NVLink rate, so the
+mesh shape follows the algorithm alone. Everything runs under
+`jax.shard_map` with the compute stages unchanged from the single-device
+path.
 """
 
 from __future__ import annotations
@@ -117,8 +119,8 @@ def _split2_compact_mesh(
     probs, cum_hi, cum_lo, split2, lo, n_local, k
 ):
     """Generalized unit/wide split compaction under a model-sharded mesh —
-    the shard_map dual of ops/nodeconf._compact_unit_wide (the round-4
-    single-chip default, VERDICT r4 item 3).
+    the shard_map dual of ops/nodeconf._compact_unit_wide (the
+    single-chip default).
 
     WIDE eval nodes (tip range > 1) keep the clipped-range dd partial
     confidences merged with a psum — but at [B, n_wide] (a small fraction
@@ -203,17 +205,6 @@ def make_mesh(spec: str = "", devices=None) -> Mesh:
     if spec:
         d, m = (int(x) for x in spec.split(","))
         if d * m > n:
-            # some environments pin the default platform to a single real
-            # chip; honor an explicit larger mesh with the (virtual) CPU
-            # backend when it has enough devices
-            # (XLA_FLAGS=--xla_force_host_platform_device_count=N)
-            try:
-                cpu = jax.local_devices(backend="cpu")
-            except RuntimeError:
-                cpu = []
-            if d * m <= len(cpu):
-                devices, n = cpu, len(cpu)
-        if d * m > n:
             raise ValueError(f"mesh {d}x{m} > {n} available devices")
         devices, n = devices[: d * m], d * m
     else:
@@ -251,7 +242,7 @@ class ShardedPipeline:
     #: database, SURVEY §7 M5): host-pulled outputs must be replicated on
     #: device first, since non-addressable shards cannot be np.asarray'd
     multiprocess: bool
-    backend: str  #: counts kernel: "xla" (bit-matmul) or "pallas" (gather+CSA)
+    backend: str  #: counts path: "xla" (bit-matmul) or "pallas" (postings fold)
     ref_bits: jax.Array | None  #: [n_padded, 2048] u32, sharded over 'model'
     kmer_bits: jax.Array | None  #: [65537, n_padded/32] u32, cols over 'model'
     node_starts: jax.Array  #: [J] i32, replicated
@@ -276,7 +267,7 @@ class ShardedPipeline:
     def create(cls, db, mesh: Mesh, backend: str = "xla") -> "ShardedPipeline":
         from ..engine.device import descent_arrays
 
-        if backend in ("pallas", "stream") and db.kmer_layout != "packed":
+        if backend == "pallas" and db.kmer_layout != "packed":
             # model shards own contiguous reference-column blocks, which
             # only the packed layout provides (the flat layout interleaves
             # taxonomy ranges across bit layers)
@@ -297,25 +288,12 @@ class ShardedPipeline:
                 km, NamedSharding(mesh, P(None, "model"))
             )
             n_padded = km.shape[1] * 32
-        elif backend == "stream":
-            from ..ops.intersect_pallas import LANE
-            from ..ops.intersect_stream import ROW_BLOCK
-
-            # columns sharded like pallas (each shard streams its own ref
-            # stripe); rows padded to a ROW_BLOCK multiple with zero rows
-            # (pair-padding scatter no-ops)
-            km = pad_to_multiple(db.kmer_major, model * LANE * 8, axis=1)
-            km = pad_to_multiple(km, ROW_BLOCK, axis=0)
-            kmer_bits = jax.device_put(
-                km, NamedSharding(mesh, P(None, "model"))
-            )
-            n_padded = km.shape[1] * 32
         else:
             if db.ref_major is None:
                 raise RuntimeError(
                     "xla backend needs the ref-major matrix, but this "
                     "database was built with with_ref_major=False "
-                    "(pallas/stream only); rebuild the database or pick "
+                    "(pallas only); rebuild the database or pick "
                     "--backend pallas"
                 )
             ref = pad_to_multiple(db.ref_major, model, axis=0)
@@ -324,9 +302,9 @@ class ShardedPipeline:
             )
             n_padded = ref.shape[0]
         # Optional per-shard memory budget (bytes): databases bigger than
-        # one device's HBM MUST shard over the model axis (BASELINE config
-        # 5 — e.g. a 5M-ref postings matrix at ~41 GB vs 16 GB/chip). The
-        # guard turns a would-be device OOM into an actionable error.
+        # one device's memory MUST shard over the model axis (BASELINE
+        # config 5 — e.g. a 5M-ref postings matrix at ~41 GB). The guard
+        # turns a would-be device OOM into an actionable error.
         budget = int(os.environ.get("RAXTAX_SHARD_HBM_BUDGET", "0") or 0)
         if budget:
             resident = (
@@ -424,12 +402,11 @@ class ShardedPipeline:
             check_vma=False,
         )(query_bits, ref_bits, exact_ids)
 
-    @partial(jax.jit, static_argnames=("self", "s_max", "n_high", "interpret"))
+    @partial(jax.jit, static_argnames=("self", "s_max", "n_high"))
     def _counts_hist_pallas(
-        self, kmer_idx, kmer_bits, exact_ids, s_max: int, n_high: int,
-        interpret: bool,
+        self, kmer_idx, kmer_bits, exact_ids, s_max: int, n_high: int
     ):
-        from ..ops.intersect_pallas import LANE, _hs_planes
+        from ..ops.intersect_pallas import LANE, fold_planes
         from ..ops.planes import planes_histogram, zero_tips_in_planes
 
         n_local = self.n_padded // self.mesh.shape["model"]
@@ -439,11 +416,8 @@ class ShardedPipeline:
             # each shard holds the counter PLANES for its own block of
             # references — the dense count matrix never exists; no
             # cross-shard traffic until the psum'ed histogram
-            rows = km_l[kidx.reshape(-1)]  # [B_l*K, Nw_l]
-            rows = rows.reshape(rows.shape[0], -1, LANE)
-            planes = _hs_planes(
-                rows, batch=kidx.shape[0], n_high=n_high, interpret=interpret
-            )
+            planes = fold_planes(kidx, km_l, n_high)  # [B_l, P, Nw_l]
+            planes = planes.reshape(planes.shape[0], planes.shape[1], -1, LANE)
             lo = jax.lax.axis_index("model") * n_local
             local_ids = jnp.where(
                 (ids >= lo) & (ids < lo + n_local), ids - lo, -1
@@ -452,10 +426,7 @@ class ShardedPipeline:
             # per-shard padding correction happens on host (hist[0] -=
             # n_padded - num_tips), so declare all covered tips real here
             hist = jax.lax.psum(
-                planes_histogram(
-                    planes, s_max, n_local, interpret=interpret
-                ),
-                "model",
+                planes_histogram(planes, s_max, n_local), "model"
             )
             return planes, self._replicate(hist)
 
@@ -468,63 +439,6 @@ class ShardedPipeline:
             # explicit psum above is the only collective in this stage
             check_vma=False,
         )(kmer_idx, kmer_bits, exact_ids)
-
-    @partial(
-        jax.jit, static_argnames=("self", "s_max", "n_planes", "interpret")
-    )
-    def _counts_hist_stream(
-        self, pair_q, pair_row, block_ptr, kmer_bits, exact_ids, s_max: int,
-        n_planes: int, interpret: bool,
-    ):
-        from ..ops.intersect_pallas import LANE
-        from ..ops.intersect_stream import (
-            _stream_planes,
-            max_stream_batch,
-            pick_tiles,
-        )
-        from ..ops.planes import planes_histogram, zero_tips_in_planes
-
-        n_local = self.n_padded // self.mesh.shape["model"]
-        b_global = exact_ids.shape[0]
-        b_l = b_global // self.mesh.shape["data"]
-        assert b_l <= max_stream_batch(n_planes), (
-            "stream batch exceeds VMEM; shrink --batch-size"
-        )
-
-        def stage(pq, pr, bp, km_l, ids):
-            pq, pr, bp = pq[0], pr[0], bp[0]  # [1, m] data-shard block
-            km3 = km_l.reshape(km_l.shape[0], -1, LANE)
-            n_tiles = pick_tiles(b_l, n_planes, km3.shape[1])
-            planes = _stream_planes(
-                pq, pr, bp, km3, batch=b_l, n_planes=n_planes,
-                n_tiles=n_tiles, interpret=interpret,
-            )
-            lo = jax.lax.axis_index("model") * n_local
-            local_ids = jnp.where(
-                (ids >= lo) & (ids < lo + n_local), ids - lo, -1
-            )
-            planes = zero_tips_in_planes(planes, local_ids)
-            hist = jax.lax.psum(
-                planes_histogram(
-                    planes, s_max, n_local, interpret=interpret
-                ),
-                "model",
-            )
-            return planes, self._replicate(hist)
-
-        return jax.shard_map(
-            stage,
-            mesh=self.mesh,
-            in_specs=(
-                P("data", None),
-                P("data", None),
-                P("data", None),
-                P(None, "model"),
-                P("data", None),
-            ),
-            out_specs=(P("data", None, "model", None), self._data_spec(None)),
-            check_vma=False,
-        )(pair_q, pair_row, block_ptr, kmer_bits, exact_ids)
 
     def counts_and_hist(
         self,
@@ -542,64 +456,13 @@ class ShardedPipeline:
         """
         data = NamedSharding(self.mesh, P("data", None))
         ids = jax.device_put(exact_ids, data)
-        # interpret mode follows the MESH devices (which may be the
-        # virtual CPU backend even when the default platform is a chip)
-        interpret = self.mesh.devices.flat[0].platform != "tpu"
         if self.backend == "pallas":
-            k_pad = kmer_idx.shape[1]
-            n_high = max(int(np.ceil(np.log2(k_pad + 1))) - 4, 1)
+            from ..ops.intersect_pallas import n_high_planes
+
             kidx = jax.device_put(kmer_idx, data)
             return self._counts_hist_pallas(
-                kidx, self.kmer_bits, ids, s_max, n_high, interpret
-            )
-        if self.backend == "stream":
-            from ..ops.intersect_stream import build_pairs
-
-            k_pad = kmer_idx.shape[1]
-            n_planes = max(int(np.ceil(np.log2(k_pad + 1))), 1)
-            d = self.mesh.shape["data"]
-            b_l = kmer_idx.shape[0] // d
-            # per data-shard pair CSR over that shard's query slice; all
-            # shards share the (replicated) padded pair buffers
-            pq_l, pr_l, bp_l = [], [], []
-            n_rows = self.kmer_bits.shape[0]
-            for k in range(d):
-                q, r, bp = build_pairs(
-                    kmer_idx[k * b_l : (k + 1) * b_l], n_rows
-                )
-                pq_l.append(q)
-                pr_l.append(r)
-                bp_l.append(bp)
-            # NOTE: each data shard needs ITS OWN pairs; stack on a leading
-            # axis sharded over 'data' and index inside... simpler: pad all
-            # to one length and shard the leading axis
-            m = max(q.shape[0] for q in pq_l)
-            pq = np.stack([np.pad(q, (0, m - q.shape[0])) for q in pq_l])
-            pr = np.stack(
-                [
-                    np.pad(r, (0, m - r.shape[0]),
-                           constant_values=n_rows - 1)
-                    for r in pr_l
-                ]
-            )
-            # block_ptr must cover the padding rows appended above: extend
-            # the last block's range
-            bp2 = []
-            for k, bp in enumerate(bp_l):
-                b = bp.copy()
-                b[-1] = m
-                bp2.append(b)
-            bp = np.stack(bp2)
-            shard1 = NamedSharding(self.mesh, P("data"))
-            return self._counts_hist_stream(
-                jax.device_put(pq, shard1),
-                jax.device_put(pr, shard1),
-                jax.device_put(bp, shard1),
-                self.kmer_bits,
-                ids,
-                s_max,
-                n_planes,
-                interpret,
+                kidx, self.kmer_bits, ids, s_max,
+                n_high_planes(kmer_idx.shape[1]),
             )
         qb = jax.device_put(query_bits, data)
         return self._counts_hist(qb, self.ref_bits, ids, s_max)
@@ -647,7 +510,7 @@ class ShardedPipeline:
             # gathered at the <=k compacted indices FIRST and psum'd at
             # [B, k] — gather commutes with the elementwise psum, so
             # psum(cl)[idx] == psum(cl[idx]) bit-exactly, at 1/J of the
-            # ICI traffic.
+            # cross-device traffic.
             conf_hi = jax.lax.psum(ch, "model")
             k = min(top_k, conf_hi.shape[1])
             vals, idx, n_sig = threshold_set(conf_hi, SIG_THRESHOLD, k)
@@ -679,19 +542,17 @@ class ShardedPipeline:
             check_vma=False,
         )(counts, table)
 
-    @partial(jax.jit, static_argnames=("self", "top_k", "interpret"))
-    def _significant_planes(
-        self, planes, table, starts, ends, top_k: int, interpret: bool
-    ):
+    @partial(jax.jit, static_argnames=("self", "top_k"))
+    def _significant_planes(self, planes, table, starts, ends, top_k: int):
         from ..ops.planes import planes_probs, probs_to_tip_order
 
         n_local = self.n_padded // self.mesh.shape["model"]
 
         def stage(planes_l, table_l):
             probs = probs_to_tip_order(
-                planes_probs(planes_l, table_l, interpret=interpret), 0
+                planes_probs(planes_l, table_l), 0
             )  # [B_l, n_local]
-            cum_hi, cum_lo = tip_prob_cumsum_dd(probs, interpret=interpret)
+            cum_hi, cum_lo = tip_prob_cumsum_dd(probs)
             lo = jax.lax.axis_index("model") * n_local
             if self.split2 is not None:
                 k = min(top_k, starts.shape[0])
@@ -722,7 +583,7 @@ class ShardedPipeline:
             ch, cl = node_conf_dd(cum_hi, cum_lo, s, e)
             # hi plane psum'd at full [B, J]; lo plane gathered at the
             # compacted indices first and psum'd at [B, k] (see
-            # _significant — bit-identical, 1/J of the ICI traffic)
+            # _significant — bit-identical, 1/J of the cross-device traffic)
             conf_hi = jax.lax.psum(ch, "model")
             k = min(top_k, conf_hi.shape[1])
             vals, idx, n_sig = threshold_set(conf_hi, SIG_THRESHOLD, k)
@@ -759,11 +620,9 @@ class ShardedPipeline:
         tbl = jax.device_put(
             table, NamedSharding(self.mesh, P("data", None))
         )
-        if self.backend in ("pallas", "stream"):
-            interpret = self.mesh.devices.flat[0].platform != "tpu"
+        if self.backend == "pallas":
             return self._significant_planes(
-                counts, tbl, self.node_starts, self.node_ends, top_k,
-                interpret,
+                counts, tbl, self.node_starts, self.node_ends, top_k
             )
         return self._significant(
             counts, tbl, self.node_starts, self.node_ends, top_k
@@ -816,7 +675,7 @@ class ShardedPipeline:
 
     @partial(jax.jit, static_argnames=("self",))
     def _gather_rows(self, counts, idx):
-        planes_mode = self.backend in ("pallas", "stream")
+        planes_mode = self.backend == "pallas"
         # model-sharded axis: S (dim 2) for planes, N (dim 1) for counts
         gather_axis = 2 if planes_mode else 1
 
@@ -864,7 +723,7 @@ class ShardedPipeline:
                 jax.device_put(idx, NamedSharding(self.mesh, P())),
             )
         )[:m]
-        if self.backend in ("pallas", "stream"):
+        if self.backend == "pallas":
             from ..ops.compress import decode_plane_rows
 
             return decode_plane_rows(sel)

@@ -1,8 +1,8 @@
 """Multi-host (multi-process) execution support.
 
-The reference is single-process (SURVEY.md §5: no distributed backend); the
-TPU-native framework scales across hosts with `jax.distributed`: every host
-runs the same program, the global ('data','model') mesh spans all chips, and
+The reference is single-process (SURVEY.md §5: no distributed backend);
+this framework scales across hosts with `jax.distributed`: every host runs
+the same program, the global ('data','model') mesh spans all devices, and
 each host feeds its own slice of the query stream (data-parallel at the host
 level). Outputs are written as per-host shards with a deterministic order
 and folded by `consolidate_artifacts` (host 0, or any later resume), which
@@ -28,8 +28,7 @@ def maybe_initialize(coordinator: str = "", num_processes: int = 0,
 
     Configuration sources, in priority order: explicit arguments, the
     standard JAX env vars (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
-    JAX_PROCESS_ID), TPU pod auto-detection (jax.distributed.initialize with
-    no args inside a pod slice). Single process when none apply.
+    JAX_PROCESS_ID). Single process when no coordinator is given.
     """
     import jax
 

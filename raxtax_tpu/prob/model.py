@@ -7,13 +7,13 @@ and per-reference intersection sizes ``s``, it computes for every reference
 the probability that it attains the maximum draw count when ``T`` k-mers are
 drawn from the query's multiset *with replacement* (multiset coefficients).
 
-Structure for TPU-scale throughput:
+Structure for device-scale throughput:
 
 - the ln-PMF/ln-CMF tables depend only on ``(K, s, i)`` with ``T = K // 2`` —
   **not** on the reference database — so they are memoized per ``K`` and
   shared by every query with the same distinct-k-mer count;
 - all O(num_refs) reductions collapse through the intersection-size
-  *histogram* (computed on device with an MXU outer-product trick), so the
+  *histogram* (computed on device with a one-hot outer product), so the
   f64 stage here touches only ``(K+1) × (T+1)`` tables;
 - per-reference probabilities are recovered on device as a gather from the
   returned per-size table.

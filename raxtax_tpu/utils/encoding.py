@@ -1,6 +1,6 @@
 """DNA encoding primitives.
 
-TPU-native re-design of the reference encoder (reference: src/parser.rs:11-34,
+Vectorized re-design of the reference encoder (reference: src/parser.rs:11-34,
 src/utils.rs:17-40). Nucleotides are encoded as a 4-bit one-hot union
 (A=0b0001, C=0b0010, G=0b0100, T=0b1000; IUPAC ambiguity codes are bitwise
 unions). Pure A/C/G/T map down to 2-bit codes used for packing 8-mers into

@@ -50,6 +50,13 @@ def setup_logging(log_stream, level: int) -> None:
     log.propagate = False
 
 
+def close_logging() -> None:
+    """Detach the run's log file from the 'raxtax' logger (before the file
+    closes, so later library logging in the same process cannot write to
+    a closed stream)."""
+    log.handlers.clear()
+
+
 def report_error(message: str, error: BaseException | str = "") -> None:
     """Log + colored stderr mirror (src/utils.rs:131-137)."""
     suffix = f": {error}" if str(error) else ""

@@ -1,6 +1,6 @@
 """Shared helpers for the benchmark harness.
 
-TPU-native port of the reference harness utilities (reference:
+Port of the reference harness utilities (reference:
 scripts/common.py): sample a references/queries split from a FASTA, run a
 classifier command while polling peak host RSS at 10 Hz, and time it.
 Biopython is replaced by the package's own FASTA reader.

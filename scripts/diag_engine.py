@@ -3,9 +3,8 @@
 
 Times submit/prepare/finalize with hard syncs (serialized, no pipeline
 overlap) and reports the engine's sticky mode flips, so the per-phase cost
-of the CONFIGURATION THE BENCH ACTUALLY RUNS is known — profile_stages.py
-measures isolated kernels at fixed variants, which can diverge from the
-engine's adaptive choices (mux_dense, sparse fallback, top-k widening).
+of the CONFIGURATION THE BENCH ACTUALLY RUNS is known, including the
+engine's adaptive choices (mux_dense, EXACT mode, top-k widening).
 
 Usage: RAXTAX_BENCH_REFS=1000000 python scripts/diag_engine.py
 """
@@ -34,16 +33,16 @@ def log(msg: str) -> None:
 def main() -> int:
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
     from raxtax_tpu.engine.device import DeviceClassifier
-    from raxtax_tpu.utils.jaxcfg import setup_jax
+    from raxtax_tpu.utils.jaxcfg import require_gpu, setup_jax
 
     setup_jax()
+    require_gpu("diag_engine.py")
     n_refs = bench.CONFIGS[-1]
     fam, rng = bench.synth_fam()
-    db = bench.get_database(n_refs, fam, rng)
+    db = bench.get_database(n_refs, fam, rng, "pallas")
     queries = bench.synth_queries(fam, 2048)
     clf = DeviceClassifier.create(
-        db, backend=os.environ.get("RAXTAX_BENCH_BACKEND_DIAG", "pallas"),
-        batch_size=bench.BATCH or None,
+        db, backend="pallas", batch_size=bench.BATCH or None
     )
     B = clf.batch_size
     log(f"backend={clf.backend} batch={B} refs={db.num_tips}")
@@ -58,8 +57,8 @@ def main() -> int:
     clf.finalize_batch(clf.prepare_batch(clf.submit_batch(queries[B : 2 * B])))
     log(f"warmup {time.time() - t0:.1f}s")
     log(
-        f"modes: mux_dense={clf._mux_dense} sparse={clf._sparse} "
-        f"top_k={clf._top_k} bm_scan={clf._bm_scan} "
+        f"modes: mux_dense={clf._mux_dense} exact={clf._exact_mode} "
+        f"top_k={clf._top_k} "
         f"split={'on' if clf._split is not None else 'off'} "
         f"over_budget={clf._over_budget}"
     )
@@ -145,7 +144,7 @@ def main() -> int:
             )
         sub.clear()
     log(
-        f"modes after: mux_dense={clf._mux_dense} sparse={clf._sparse} "
+        f"modes after: mux_dense={clf._mux_dense} exact={clf._exact_mode} "
         f"top_k={clf._top_k}"
     )
     return 0

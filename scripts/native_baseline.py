@@ -22,8 +22,8 @@ Reported figures:
 - a 64-core extrapolation at PERFECT scaling (generous again: at 1M tips
   the scatter traffic saturates DRAM long before 64 cores).
 
-Compare `64-core upper bound` against `bench.py` q/s/chip x 8 (v5e-8,
-queries are embarrassingly data-parallel) for the >=10x target.
+Compare `64-core upper bound` against `bench.py` q/s/chip times the number
+of cards (queries are embarrassingly data-parallel).
 
 Usage: RAXTAX_BENCH_REFS=1000000 python scripts/native_baseline.py
 """

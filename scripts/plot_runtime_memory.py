@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Plots for the benchmark harness CSVs.
 
-TPU-native port of the reference plotting script (reference:
+Port of the reference plotting script (reference:
 scripts/plot_runtime_memory.py): runtime and peak-RSS vs DB size from
 runtime_memory.py output, speedup/efficiency vs devices from speedup.py
 output. Produces PNGs next to the input CSVs.

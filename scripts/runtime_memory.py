@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """DB-size sweep: runtime + peak host RSS per database size.
 
-TPU-native port of the reference sweep (reference:
+Port of the reference sweep (reference:
 scripts/runtime_memory.py): sample N records from an input FASTA, split
 90/10 into references/queries, run the classifier end-to-end (DB build +
 classification), record wall time and peak RSS, 3 repetitions per size.

@@ -1,10 +1,11 @@
 #!/usr/bin/env python
 """Scaling sweeps: strong and weak scaling over device-mesh sizes.
 
-TPU-native port of the reference thread-scaling harness (reference:
+Port of the reference thread-scaling harness (reference:
 scripts/speedup.py): where the reference sweeps rayon thread counts, this
-sweeps the number of mesh devices (virtual CPU devices locally via
-XLA_FLAGS=--xla_force_host_platform_device_count, real chips on a pod).
+sweeps the number of mesh devices (``--mesh 1,N`` on a host with N GPUs).
+The parent process stays off JAX; each run is one child process that holds
+the cards.
 
 - strong scaling: fixed query count, devices in [1, 2, 4, 8]
 - weak scaling: +QUERIES_PER_DEVICE queries per added device
@@ -19,7 +20,6 @@ from __future__ import annotations
 
 import argparse
 import csv
-import os
 import sys
 import tempfile
 from pathlib import Path
@@ -64,16 +64,11 @@ def main() -> int:
             write_fasta(
                 [(f"{h}#{i}", s) for i, (h, s) in enumerate(queries)], qry_f
             )
-            env_flags = os.environ.get("XLA_FLAGS", "")
-            os.environ["XLA_FLAGS"] = (
-                f"{env_flags} --xla_force_host_platform_device_count={nd}"
-            ).strip()
             cmd = raxtax_tpu_cmd(
                 ref_f, qry_f, Path(td) / "out",
                 extra=["--backend", args.backend, "--mesh", f"1,{nd}"],
             )
             runtime, peak_mb, rc = run_with_memory_poll(cmd)
-            os.environ["XLA_FLAGS"] = env_flags
         if nd == args.devices[0]:
             base_runtime = runtime  # smallest-mesh reference point
         base_nd = args.devices[0]

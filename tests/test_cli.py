@@ -209,7 +209,7 @@ def test_num_processes_requires_coordinator(world, monkeypatch):
 def test_shard_consolidation_resume(world, monkeypatch):
     """A partial 2-process run's shard artifacts are folded into the merged
     files, and a following single-process run reclassifies ONLY the
-    unfinished queries (VERDICT round-1 item 10)."""
+    unfinished queries."""
     ref, q, out = world
     # build a complete single-process reference output for comparison
     ref_out = world[2].parent / "ref_out"

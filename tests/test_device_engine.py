@@ -1,7 +1,7 @@
 """Device pipeline vs exact oracle: byte-identical outputs.
 
-Runs on CPU JAX (conftest forces 8 virtual devices); the same code paths run
-on TPU. Covers the XLA counts path, MXU histogram, node-confidence
+Runs on CPU JAX (conftest sets 8 virtual devices); the same code paths run
+on the GPU. Covers the XLA counts path, one-hot histogram, node-confidence
 compaction, fallback descent, and exact-match policy.
 """
 
@@ -239,7 +239,7 @@ def test_mixed_length_queries(small_world):
 def test_forced_signal_replay_matches_oracle(small_world):
     """The sequential-order global-signal replay (boundary-risk path) is
     byte-identical to the oracle's sequential accumulation for EVERY query
-    when forced on (VERDICT round-1 item 5)."""
+    when forced on."""
     db, queries = small_world
     oracle = OracleClassifier(db)
     dev = DeviceClassifier.create(db, backend="pallas", batch_size=8)
@@ -361,7 +361,7 @@ def test_under_covered_wire_replays_via_gather(family_world):
 def test_prewarm_single_kernel_set(small_world):
     """A prewarmed shuffled-length stream uses exactly ONE (k_pad, s_max)
     shape bucket — i.e. one compiled kernel set — and produces the same
-    bytes as the sorted stream (VERDICT r2 item 7)."""
+    bytes as the sorted stream."""
     db, queries = small_world
     from raxtax_tpu import native
 

@@ -178,3 +178,66 @@ def test_exact_descent_matches_reference_ties():
             cum[i], root, range_start, range_end, ptr, child_ids, is_inner
         )
         assert finals[i] == want, f"query {i}: got {finals[i]} want {want}"
+
+
+@pytest.mark.parametrize("n", [8, 512])
+def test_scan_jnp_matches_triton_interpret(n):
+    """The lax.scan form (the CPU route) and the Pallas-Triton kernel (in
+    interpret mode) agree bit for bit, incl. a single unrolled step."""
+    import jax.numpy as jnp
+
+    from raxtax_tpu.ops.exactscan import (
+        exact_cumsum_pairs_jnp,
+        exact_cumsum_pairs_triton,
+    )
+
+    rng = np.random.default_rng(n)
+    p = _probs(rng, 128, n)
+    ph, plo = split64_np(p.reshape(-1))
+    gh, gl = probs_pairs_scan_layout(ph.reshape(128, n), plo.reshape(128, n))
+    a = exact_cumsum_pairs_jnp(jnp.asarray(gh), jnp.asarray(gl))
+    b = exact_cumsum_pairs_triton(
+        jnp.asarray(gh), jnp.asarray(gl), interpret=True
+    )
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+
+
+def test_scan_kernel_lowers_for_cuda():
+    import jax
+    import jax.numpy as jnp
+
+    from raxtax_tpu.ops.exactscan import exact_cumsum_pairs_triton
+
+    z = jnp.zeros((2, 64, 128), jnp.uint32)
+    text = (
+        jax.jit(exact_cumsum_pairs_triton)
+        .trace(z, z)
+        .lower(lowering_platforms=("cuda",))
+        .as_text()
+    )
+    assert "triton" in text
+
+
+@pytest.mark.parametrize(
+    "platform,interpret,want",
+    [("gpu", False, "triton"), ("cpu", False, "jnp"), ("gpu", True, "interp")],
+)
+def test_scan_dispatch(monkeypatch, platform, interpret, want):
+    from raxtax_tpu.ops import exactscan as es
+    from raxtax_tpu.utils import jaxcfg
+
+    calls = []
+    monkeypatch.setattr(jaxcfg, "platform", lambda: platform)
+    monkeypatch.setattr(
+        es, "exact_cumsum_pairs_triton",
+        lambda h, lo, interpret=False: calls.append(
+            "interp" if interpret else "triton"
+        ),
+    )
+    monkeypatch.setattr(
+        es, "exact_cumsum_pairs_jnp", lambda h, lo: calls.append("jnp")
+    )
+    z = np.zeros((1, 8, 128), np.uint32)
+    es.exact_cumsum_pairs(z, z, interpret=interpret)
+    assert calls == [want]

@@ -1,4 +1,4 @@
-"""Committed golden end-to-end fixture (VERDICT r2 item 9, r3 item 6).
+"""Committed golden end-to-end fixture.
 
 Real Diptera COI records (from the reference's bundled example,
 reference: example/diptera_queries.fasta) with byte-expected
@@ -110,7 +110,7 @@ def test_golden_xla_tsv_off(golden_world):
 
 
 @pytest.mark.heavy
-@pytest.mark.parametrize("backend", ["pallas", "stream"])
+@pytest.mark.parametrize("backend", ["pallas"])
 def test_golden_kernel_backends(golden_world, backend):
     from raxtax_tpu.engine.device import DeviceClassifier
 

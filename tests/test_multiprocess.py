@@ -140,7 +140,7 @@ def test_global_mesh_model_sharding_matches_single(tmp_path: Path):
 
 @pytest.mark.slow
 def test_global_mesh_over_budget_db_and_resume(tmp_path: Path):
-    """VERDICT r2 item 10: a database too big for ONE device's budget must
+    """A database too big for ONE device's budget must
     run model-sharded across processes (--global-mesh), and a crashed run
     must resume mid-stream to byte-identical output.
 

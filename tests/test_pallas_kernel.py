@@ -1,4 +1,6 @@
-"""Pallas CSA kernel tests (interpret mode on CPU; compiled on TPU)."""
+"""Postings fold tests: the jnp fold against the host oracle, the
+Pallas-Triton fold in interpret mode against the jnp fold, its lowering
+for the GPU, and the choice between them."""
 
 import numpy as np
 import pytest
@@ -7,7 +9,7 @@ from raxtax_tpu.db.database import build_database
 from raxtax_tpu.models.oracle import intersection_counts
 from raxtax_tpu.ops.intersect_pallas import (
     PAD_ROW,
-    intersection_counts_pallas,
+    intersection_planes,
     prepare_kmer_major,
 )
 from raxtax_tpu.utils.encoding import encode_sequence, sequence_to_kmers
@@ -42,9 +44,8 @@ def test_pallas_counts_match_oracle(world):
     for i, km in enumerate(kmer_sets):
         kmer_idx[i, : km.size] = km
     km_dev = prepare_kmer_major(db)
-    counts = np.asarray(
-        intersection_counts_pallas(kmer_idx, km_dev, db.num_tips)
-    )
+    counts = _decode(np.asarray(intersection_planes(kmer_idx, km_dev)))
+    counts = counts[:, : db.num_tips]
     for i, km in enumerate(kmer_sets):
         np.testing.assert_array_equal(
             counts[i].astype(np.int64), intersection_counts(db, km), err_msg=f"query {i}"
@@ -58,163 +59,160 @@ def test_pallas_counts_saturating_planes(world):
     k_pad = -(-km.size // 8) * 8
     kmer_idx = np.full((1, k_pad), PAD_ROW, dtype=np.int32)
     kmer_idx[0, : km.size] = km
-    counts = np.asarray(
-        intersection_counts_pallas(kmer_idx, prepare_kmer_major(db), db.num_tips)
-    )
+    counts = _decode(
+        np.asarray(intersection_planes(kmer_idx, prepare_kmer_major(db)))
+    )[:, : db.num_tips]
     # the matching reference is tip with lineage sorted position of seq 7
     assert counts.max() == km.size
 
 
-def test_fused_gather_planes_match_legacy(world):
-    """The fused-gather variant (scalar-prefetched block index maps, 3-D
-    kmer-major layout) must produce bit-identical counter planes to the
-    XLA-gather path."""
-    from raxtax_tpu.ops.intersect_pallas import intersection_planes_pallas
-
-    db, seqs = world
-    queries = [encode_sequence(seqs[i]) for i in (1, 9, 23)]
-    kmer_sets = [sequence_to_kmers(s) for s in queries]
-    k_pad = -(-max(k.size for k in kmer_sets) // 16) * 16
-    kmer_idx = np.full((len(queries), k_pad), PAD_ROW, dtype=np.int32)
+def _kmer_idx(kmer_sets, k_pad=None):
+    k_pad = k_pad or -(-max(k.size for k in kmer_sets) // 16) * 16
+    kmer_idx = np.full((len(kmer_sets), k_pad), PAD_ROW, dtype=np.int32)
     for i, km in enumerate(kmer_sets):
         kmer_idx[i, : km.size] = km
-    legacy = np.asarray(
-        intersection_planes_pallas(
-            kmer_idx, prepare_kmer_major(db, fused_gather=False)
-        )
-    )
-    fused = np.asarray(
-        intersection_planes_pallas(
-            kmer_idx, prepare_kmer_major(db, fused_gather=True)
-        )
-    )
-    np.testing.assert_array_equal(fused, legacy)
-    # the per-query step gate must not change the planes: padded steps
-    # fold all-zero PAD_ROW rows, so skipping them is arithmetically inert
-    gated = np.asarray(
-        intersection_planes_pallas(
-            kmer_idx,
-            prepare_kmer_major(db, fused_gather=True),
-            kcounts=np.array([k.size for k in kmer_sets], np.int64),
-        )
-    )
-    np.testing.assert_array_equal(gated, legacy)
+    return kmer_idx
 
 
-def test_sparse_fold_planes_match_dense(world):
-    """The block-sparse ripple fold must produce bit-identical counter
-    planes to the dense fold on every block its pairs touch — and zeros on
-    the blocks they skip. block_sub=1 shrinks blocks to 4096 references so
-    the 40-reference world still spans the multi-block index math in
-    interpret mode (on hardware blocks are >= 8 sublanes)."""
-    from raxtax_tpu.ops.intersect_pallas import (
-        build_pairs,
-        intersection_planes_pallas,
-        intersection_planes_sparse,
-        prepare_kmer_major_sparse,
-    )
+def _random_matrix(rng, nw, density_words=None):
+    km = rng.integers(0, 1 << 32, size=(PAD_ROW + 1, nw), dtype=np.uint64)
+    km = km.astype(np.uint32)
+    km[PAD_ROW] = 0
+    return km
 
-    db, seqs = world
-    rng = np.random.default_rng(11)
-    queries = [encode_sequence(seqs[i]) for i in (2, 5, 31)]
-    queries.append(encode_sequence(random_seq(rng, 240)))
-    kmer_sets = [sequence_to_kmers(s) for s in queries]
-    k_pad = -(-max(k.size for k in kmer_sets) // 16) * 16
-    kmer_idx = np.full((len(queries), k_pad), PAD_ROW, dtype=np.int32)
-    for i, km in enumerate(kmer_sets):
-        kmer_idx[i, : km.size] = km
-    dense = np.asarray(
-        intersection_planes_pallas(
-            kmer_idx, prepare_kmer_major(db, fused_gather=False)
+
+def _host_counts(km, ids):
+    rows = km[ids[ids != PAD_ROW]]
+    bits = np.unpackbits(
+        rows.astype("<u4").view(np.uint8), axis=1, bitorder="little"
+    )
+    return bits.sum(axis=0, dtype=np.int64)
+
+
+def _decode(planes):
+    """[B, P, Nw] (or [B, P, S, 128]) planes -> [B, Nw*32] counts (packed
+    bit order)."""
+    B, P = planes.shape[:2]
+    planes = planes.reshape(B, P, -1)
+    out = np.zeros((B, planes.shape[2] * 32), np.int64)
+    for p in range(P):
+        bits = np.unpackbits(
+            planes[:, p].astype("<u4").view(np.uint8), axis=1,
+            bitorder="little",
         )
-    )
-    km3, blk_ptr, blk_ids = prepare_kmer_major_sparse(db)
-    pair_kmer, pair_blk, max_pairs, totals = build_pairs(
-        kmer_idx, blk_ptr, blk_ids, budget=1 << 20
-    )
-    assert max_pairs >= 1
-    sparse = np.asarray(
-        intersection_planes_sparse(
-            pair_kmer, pair_blk, km3, max_count=k_pad, totals=totals
-        )
-    )
-    # compare on the dense extent; the sparse matrix may be padded wider
-    S = dense.shape[2]
-    np.testing.assert_array_equal(sparse[:, :, :S, :], dense)
-    assert not sparse[:, :, S:, :].any()
+        out += bits.astype(np.int64) << p
+    return out
 
 
-def test_sparse_fold_multiblock_synthetic():
-    """Multi-block index math: a synthetic k-mer-major matrix whose rows
-    post in scattered blocks, folded at block_sub=1 (4096 refs/block) so a
-    small world spans several blocks. Expected counts are recomputed in
-    numpy from the raw bit matrix."""
+@pytest.mark.parametrize(
+    "nw,reals",
+    [
+        (384, [64, 17, 0]),  # one partial tile, ragged real k-mer counts
+        (640, [48, 48, 33, 1, 5]),  # tile tail, batch not a block multiple
+        (128, [32]),  # a single full block
+    ],
+    ids=["partial-tile", "tile-tail", "single-block"],
+)
+def test_fold_triton_interpret_matches_jnp(nw, reals):
+    """The Pallas-Triton fold (interpret mode) is bit-identical to the jnp
+    fold and to host popcounts: padded k-mer slots, per-query real block
+    counts, masked tile tails."""
     import jax.numpy as jnp
 
-    from raxtax_tpu.ops.intersect_pallas import (
-        PAD_ROW,
-        build_pairs,
-        intersection_planes_sparse,
-    )
-    from raxtax_tpu.ops.planes import WORD_BITS
+    from raxtax_tpu.ops.intersect_pallas import _fold_triton, fold_planes_jnp
 
-    rng = np.random.default_rng(3)
-    n_words = 512  # 4 blocks of 128 words at block_sub=1 (16384 tips)
-    n_kmers = PAD_ROW + 1
-    km = np.zeros((n_kmers, n_words), np.uint32)
-    used = rng.choice(PAD_ROW, size=60, replace=False).astype(np.int32)
-    for k in used:
-        # each k-mer posts densely inside 1-3 random blocks (the
-        # lineage-clustered profile the sparse fold exploits)
-        for blk in rng.choice(4, size=rng.integers(1, 4), replace=False):
-            w = rng.integers(0, 1 << 32, size=40, dtype=np.uint64)
-            pos = rng.choice(128, size=40, replace=False)
-            km[k, blk * 128 + pos] |= w.astype(np.uint32)
-    km3 = jnp.asarray(km.reshape(n_kmers, -1, 128))
-    nz = km.reshape(n_kmers, 4, 128).any(axis=2)
-    blk_ptr = np.zeros(n_kmers + 1, np.int64)
-    np.cumsum(nz.sum(axis=1, dtype=np.int64), out=blk_ptr[1:])
-    blk_ids = np.nonzero(nz)[1].astype(np.int32)
-
-    B, k_pad = 3, 32
-    kmer_idx = np.full((B, k_pad), PAD_ROW, np.int32)
-    for b in range(B):
-        sel = rng.choice(used, size=rng.integers(5, k_pad), replace=False)
-        kmer_idx[b, : sel.size] = np.sort(sel)
-    pair_kmer, pair_blk, _, totals = build_pairs(
-        kmer_idx, blk_ptr, blk_ids, budget=1 << 20
+    rng = np.random.default_rng(nw)
+    km = _random_matrix(rng, nw)
+    k_pad = -(-max(reals) // 16) * 16 or 16
+    idx = np.full((len(reals), k_pad), PAD_ROW, np.int32)
+    for b, k in enumerate(reals):
+        idx[b, :k] = rng.choice(PAD_ROW, k, replace=False)
+    n_high = 3
+    want = np.asarray(fold_planes_jnp(jnp.asarray(idx), jnp.asarray(km), n_high))
+    got = np.asarray(
+        _fold_triton(jnp.asarray(idx), jnp.asarray(km), n_high, interpret=True)
     )
+    np.testing.assert_array_equal(got, want)
+    counts = _decode(got)
+    for b in range(len(reals)):
+        np.testing.assert_array_equal(counts[b], _host_counts(km, idx[b]))
+
+
+def test_fold_triton_saturating_planes():
+    """Every row all-ones: each count equals the real k-mer count, which
+    carries through the four tiers into every high plane (k = 127)."""
+    import jax.numpy as jnp
+
+    from raxtax_tpu.ops.intersect_pallas import _fold_triton, n_high_planes
+
+    km = np.full((PAD_ROW + 1, 128), 0xFFFFFFFF, np.uint32)
+    km[PAD_ROW] = 0
+    idx = np.full((2, 128), PAD_ROW, np.int32)
+    idx[0, :127] = np.arange(127)
+    idx[1, :16] = np.arange(16)
+    n_high = n_high_planes(128)
     planes = np.asarray(
-        intersection_planes_sparse(
-            pair_kmer, pair_blk, km3, max_count=k_pad, block_sub=1,
-            totals=totals,
-        )
+        _fold_triton(jnp.asarray(idx), jnp.asarray(km), n_high, interpret=True)
     )
-    # decode the planes back to per-tip counts
-    n_planes = planes.shape[1]
-    flat = planes.reshape(B, n_planes, -1)
-    counts = np.zeros((B, n_words * WORD_BITS), np.int64)
-    for p in range(n_planes):
-        bits = (flat[:, p, :, None] >> np.arange(WORD_BITS)) & 1
-        counts += bits.reshape(B, -1).astype(np.int64) << p
-    # expected: popcount-sum of the selected rows
-    for b in range(B):
-        rows = km[kmer_idx[b][kmer_idx[b] != PAD_ROW]]
-        exp = np.zeros(n_words * WORD_BITS, np.int64)
-        for r in rows:
-            exp += (r[:, None] >> np.arange(WORD_BITS) & 1).reshape(-1)
-        np.testing.assert_array_equal(counts[b], exp, err_msg=f"query {b}")
+    counts = _decode(planes)
+    assert (counts[0] == 127).all() and (counts[1] == 16).all()
 
 
-def test_build_pairs_budget_overflow(world):
-    from raxtax_tpu.ops.intersect_pallas import (
-        build_pairs,
-        prepare_kmer_major_sparse,
+def test_fold_kernel_lowers_for_cuda():
+    """The Triton fold lowers to a GPU custom call from this CPU host
+    (catches primitives the Triton route cannot lower)."""
+    import jax
+    import jax.numpy as jnp
+
+    from raxtax_tpu.ops.intersect_pallas import _fold_triton
+
+    idx = jnp.full((4, 32), PAD_ROW, jnp.int32)
+    km = jnp.zeros((PAD_ROW + 1, 640), jnp.uint32)
+    text = (
+        jax.jit(lambda i, k: _fold_triton(i, k, 3))
+        .trace(idx, km)
+        .lower(lowering_platforms=("cuda",))
+        .as_text()
     )
+    assert "triton" in text
+
+
+@pytest.mark.parametrize(
+    "platform,interpret,want",
+    [("gpu", False, "triton"), ("cpu", False, "jnp"), ("cpu", True, "interp")],
+)
+def test_fold_dispatch(monkeypatch, platform, interpret, want):
+    """fold_planes runs the compiled kernel on a GPU, the jnp fold on the
+    CPU, and the interpreter only when asked."""
+    from raxtax_tpu.ops import intersect_pallas as ip
+    from raxtax_tpu.utils import jaxcfg
+
+    calls = []
+    monkeypatch.setattr(jaxcfg, "platform", lambda: platform)
+    monkeypatch.setattr(
+        ip, "_fold_triton",
+        lambda i, k, n, interpret=False: calls.append(
+            "interp" if interpret else "triton"
+        ),
+    )
+    monkeypatch.setattr(
+        ip, "fold_planes_jnp", lambda i, k, n: calls.append("jnp")
+    )
+    ip.fold_planes(np.zeros((1, 16), np.int32), None, 1, interpret=interpret)
+    assert calls == [want]
+
+
+def test_intersection_planes_pads_kmer_width(world):
+    """A k-mer width that is not a whole number of 16-row blocks is padded
+    with all-zero rows: same planes as the explicitly padded input."""
+    from raxtax_tpu.ops.intersect_pallas import intersection_planes
 
     db, seqs = world
-    km = sequence_to_kmers(encode_sequence(seqs[0]))
-    kmer_idx = np.full((1, 16), PAD_ROW, dtype=np.int32)
-    kmer_idx[0, : min(16, km.size)] = km[:16]
-    _, blk_ptr, blk_ids = prepare_kmer_major_sparse(db, block_sub=1)
-    assert build_pairs(kmer_idx, blk_ptr, blk_ids, budget=1) is None
+    kmer_sets = [sequence_to_kmers(encode_sequence(seqs[i])) for i in (4, 8)]
+    k_max = max(k.size for k in kmer_sets)
+    ragged = _kmer_idx(kmer_sets, k_pad=k_max + 3 - (k_max + 3) % 8)
+    padded = _kmer_idx(kmer_sets)
+    km = prepare_kmer_major(db)
+    a = np.asarray(intersection_planes(ragged, km, max_count=256))
+    b = np.asarray(intersection_planes(padded, km, max_count=256))
+    np.testing.assert_array_equal(a, b)

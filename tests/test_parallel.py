@@ -141,35 +141,12 @@ def test_sharded_device_descent(world):
             assert len(qa.results) == len(qb.results), qa.label
 
 
-@pytest.mark.slow
-def test_sharded_stream_matches_oracle(world):
-    """Streaming-scatter kernel under the mesh (VERDICT round-1 item 4):
-    postings columns sharded over 'model', per-data-shard pair CSR,
-    psum-merged histograms — byte-identical to the oracle.
-
-    One 2x4 batch only: interpret-mode streaming walks all 65k+ postings
-    rows per shard, so a full sweep belongs to the TPU fuzz matrix
-    (scripts/fuzz_hardware.py), not the CPU suite.
-    """
-    db, queries = world
-    mesh = make_mesh("2,4")
-    dev = DeviceClassifier.create(
-        db, backend="stream", batch_size=4, mesh=mesh
-    )
-    assert dev.pipeline is not None and dev.pipeline.backend == "stream"
-    oracle = OracleClassifier(db)
-    chunk = queries[: dev.batch_size]
-    got = dev.classify_batch(chunk)
-    for (label, seq), qr in zip(chunk, got):
-        assert qr.out_string() == oracle.classify(label, seq).out_string(), label
-
-
 @pytest.mark.parametrize("backend", ["xla", "pallas"])
 def test_sharded_split2_matches_oracle(world, backend):
     """Generalized unit/wide split (the round-4 single-chip default) under
     the mesh: wide nodes psum'd at [B, n_wide], unit tips thresholded on
     the owning shard and shipped as -(tip+2) codes the engine expands
-    through the host CSR — byte-parity with the oracle (VERDICT r4 item 3).
+    through the host CSR — byte-parity with the oracle.
     Default-on: RAXTAX_SPLIT2 unset must activate it."""
     db, queries = world
     mesh = make_mesh("2,4")

@@ -1,9 +1,9 @@
-"""Fused counter-plane kernels vs dense host references.
+"""Counter-plane stages vs dense host references.
 
 Planes are built host-side from known integer count matrices, so every
-kernel (histogram, table-lookup probs, overflow extraction) is checked
-against the trivially-correct dense computation, incl. ragged tile tails
-and the padded-tip correction.
+stage (histogram, table-lookup probs, overflow extraction) is checked
+against the trivially-correct dense computation, incl. the padded-tip
+correction.
 """
 
 import numpy as np
@@ -61,7 +61,7 @@ def test_planes_histogram_matches_bincount(world):
     counts, planes, num_tips = world
     s_max = 128
     hist = np.asarray(
-        planes_histogram(jnp.asarray(planes), s_max, num_tips, interpret=True)
+        planes_histogram(jnp.asarray(planes), s_max, num_tips)
     )
     for b in range(counts.shape[0]):
         expect = np.bincount(counts[b, :num_tips], minlength=s_max)
@@ -74,7 +74,7 @@ def test_planes_probs_matches_table_gather(world):
     B = counts.shape[0]
     rng = np.random.default_rng(7)
     table = rng.random((B, s_max)).astype(np.float32)
-    probs = planes_probs(jnp.asarray(planes), jnp.asarray(table), interpret=True)
+    probs = planes_probs(jnp.asarray(planes), jnp.asarray(table))
     flat = np.asarray(probs_to_tip_order(probs, num_tips))
     for b in range(B):
         np.testing.assert_array_equal(
@@ -84,22 +84,21 @@ def test_planes_probs_matches_table_gather(world):
 
 def test_planes_high_counts(world):
     counts, planes, num_tips = world
-    out = planes_high_counts(jnp.asarray(planes), interpret=True)
+    out = planes_high_counts(jnp.asarray(planes))
     flat = np.asarray(probs_to_tip_order(out, num_tips)).astype(np.int64)
     expect = np.where(counts > 15, counts, 0)
     np.testing.assert_array_equal(flat[:, :num_tips], expect[:, :num_tips])
 
 
 def test_planes_histogram_ragged_tail():
-    # S=5 with tile st=min(S,256)... exercise cdiv masking by monkeypatching
-    # a small tile: use S just over a power of two and verify equality
+    # S=5: the one-hot chunk does not divide the tip axis (padded chunk)
     rng = np.random.default_rng(3)
     B, S = 2, 5
     n_pad = S * 128 * TIPS_PER_WORD
     counts = rng.integers(0, 31, size=(B, n_pad)).astype(np.int64)
     planes = encode_planes(counts, n_planes=5)
     hist = np.asarray(
-        planes_histogram(jnp.asarray(planes), 32, n_pad, interpret=True)
+        planes_histogram(jnp.asarray(planes), 32, n_pad)
     )
     for b in range(B):
         np.testing.assert_array_equal(
@@ -108,125 +107,68 @@ def test_planes_histogram_ragged_tail():
 
 
 def test_dd_cumsum_pallas_tracks_exact_sum():
-    from raxtax_tpu.ops.planes import dd_cumsum_pallas
+    from raxtax_tpu.ops.nodeconf import tip_prob_cumsum_dd
 
     rng = np.random.default_rng(5)
-    B, N = 3, 128 * 70  # ragged tile tail (70 rows, tile=256)
+    B, N = 3, 128 * 70
     probs = (rng.random((B, N)) * 1e-3).astype(np.float32)
     probs[:, 0] = 1.0  # large head: a naive f32 scan loses precision
-    hi, lo = dd_cumsum_pallas(jnp.asarray(probs), interpret=True)
+    hi, lo = tip_prob_cumsum_dd(jnp.asarray(probs))
     got = np.asarray(hi, np.float64) + np.asarray(lo, np.float64)
-    exact = np.cumsum(probs.astype(np.float64), axis=1)
-    np.testing.assert_allclose(got, exact, rtol=0, atol=1e-7 * N)
+    exact = np.concatenate(
+        [np.zeros((B, 1)), np.cumsum(probs.astype(np.float64), axis=1)], 1
+    )
+    np.testing.assert_allclose(got, exact, rtol=0, atol=4e-9)
     # and the recombined value is far tighter than a plain f32 scan
     naive = np.cumsum(probs, axis=1, dtype=np.float32).astype(np.float64)
-    assert np.abs(got - exact).max() < np.abs(naive - exact).max() / 50
-
-
-def test_bm_scan_significance_bit_parity():
-    """significant_nodes_planes with bm_scan=True (bit-major scan feed,
-    per-tile VMEM reorder) must match the tip-order-permute path bit for
-    bit, with and without overflow lists."""
-    from raxtax_tpu.ops.compress import compress_planes
-    from raxtax_tpu.ops.nodeconf import significant_nodes_planes
-
-    rng = np.random.default_rng(31)
-    B, S = 3, 3
-    n_pad = S * 128 * TIPS_PER_WORD
-    counts = rng.integers(0, 30, size=(B, n_pad)).astype(np.int64)
-    hot = rng.integers(0, n_pad, size=12)
-    counts[:, hot] = rng.integers(30, 60, size=(B, 12))
-    planes = jnp.asarray(encode_planes(counts, n_planes=6))
-    s_max = 128
-    table = jnp.asarray(rng.random((B, s_max), np.float32) * 1e-3)
-    # synthetic eval-node ranges over the padded tip axis
-    starts = np.sort(rng.integers(0, n_pad, size=200)).astype(np.int32)
-    ends = np.minimum(
-        starts + rng.integers(1, 300, size=200), n_pad
-    ).astype(np.int32)
-    starts, ends = jnp.asarray(starts), jnp.asarray(ends)
-    wire = compress_planes(planes, budget=16, interpret=True)
-    for over in (None, wire):
-        kw = (
-            {}
-            if over is None
-            else {"over_idx": wire[1], "over_val": wire[2]}
-        )
-        want = significant_nodes_planes(
-            planes, table, starts, ends, top_k=64, interpret=True,
-            bm_scan=False, **kw,
-        )
-        got = significant_nodes_planes(
-            planes, table, starts, ends, top_k=64, interpret=True,
-            bm_scan=True, **kw,
-        )
-        for w, g in zip(want[:4], got[:4]):
-            np.testing.assert_array_equal(np.asarray(w), np.asarray(g))
-        for w, g in zip(want[4], got[4]):  # the cum pair
-            np.testing.assert_array_equal(np.asarray(w), np.asarray(g))
-
-
-def test_bm_scan_split_compaction_parity():
-    """bm_scan=True composed with split compaction (tip probs read straight
-    from the bit-major layout) selects the same significant set with the
-    same hi+lo confidences as the tip-order split path."""
-    from raxtax_tpu.ops.nodeconf import significant_nodes_planes
-
-    rng = np.random.default_rng(77)
-    B, S = 2, 2
-    n_pad = S * 128 * TIPS_PER_WORD
-    counts = rng.integers(0, 15, size=(B, n_pad)).astype(np.int64)
-    # ~40 rare count-15 tips per row are the only single-tip hits: the
-    # total significant set stays under top_k, so no truncation and the
-    # two paths must select identical sets
-    for b in range(B):
-        counts[b, rng.integers(0, n_pad, size=40)] = 15
-    planes = jnp.asarray(encode_planes(counts, n_planes=4))
-    table_np = (rng.random((B, 64)) * 1e-5).astype(np.float32)
-    table_np[:, 15] = 0.006
-    table = jnp.asarray(table_np)
-    # synthetic eval view: single-tip nodes on even tips of the first
-    # half, inner nodes covering random ranges
-    n_single = n_pad // 4
-    single_tips = np.arange(0, n_single * 2, 2, dtype=np.int32)
-    inner_starts = np.sort(
-        rng.integers(0, n_pad - 1, size=60)
-    ).astype(np.int32)
-    inner_ends = np.minimum(
-        inner_starts + rng.integers(2, 200, size=60), n_pad
-    ).astype(np.int32)
-    starts = np.concatenate([inner_starts, single_tips])
-    ends = np.concatenate([inner_ends, single_tips + 1])
-    evalpos_of_tip = np.full(n_pad, -1, np.int32)
-    evalpos_of_tip[single_tips] = 60 + np.arange(n_single, dtype=np.int32)
-    split = (
-        jnp.asarray(inner_starts),
-        jnp.asarray(inner_ends),
-        jnp.asarray(np.arange(60, dtype=np.int32)),
-        jnp.asarray(evalpos_of_tip),
+    assert np.abs(got[:, 1:] - exact[:, 1:]).max() < (
+        np.abs(naive - exact[:, 1:]).max() / 50
     )
-    kw = dict(top_k=128, interpret=True, split=split)
-    want = significant_nodes_planes(
-        planes, table, jnp.asarray(starts), jnp.asarray(ends),
-        bm_scan=False, **kw,
+
+
+@pytest.mark.parametrize("zero_high", [False, True])
+def test_planes_probs_low_bits(world, zero_high):
+    """mux_bits=4 looks up the low nibble only (the overflow list fixes the
+    rest); zero_high reads 0 for every tip with a higher count bit."""
+    counts, planes, num_tips = world
+    B = counts.shape[0]
+    table = np.random.default_rng(9).random((B, 128)).astype(np.float32)
+    probs = planes_probs(
+        jnp.asarray(planes), jnp.asarray(table), mux_bits=4,
+        zero_high=zero_high,
     )
-    got = significant_nodes_planes(
-        planes, table, jnp.asarray(starts), jnp.asarray(ends),
-        bm_scan=True, **kw,
+    flat = np.asarray(probs_to_tip_order(probs, num_tips))[:, :num_tips]
+    c = counts[:, :num_tips]
+    want = np.take_along_axis(table, c & 15, axis=1)
+    if zero_high:
+        want = np.where(c > 15, 0.0, want)
+    np.testing.assert_array_equal(flat, want)
+
+
+def test_planes_probs_u32_table_and_narrow_table(world):
+    """The lookup is dtype-generic (u32 halves of the exact-f64 table) and
+    counts at or past a narrow table's width read 0."""
+    counts, planes, num_tips = world
+    B = counts.shape[0]
+    table = np.random.default_rng(4).integers(
+        0, 1 << 32, size=(B, 64), dtype=np.uint64
+    ).astype(np.uint32)
+    probs = planes_probs(jnp.asarray(planes), jnp.asarray(table))
+    assert probs.dtype == jnp.uint32
+    flat = np.asarray(probs_to_tip_order(probs, num_tips))[:, :num_tips]
+    c = counts[:, :num_tips]
+    want = np.where(
+        c < 64, np.take_along_axis(table, np.minimum(c, 63), axis=1), 0
     )
-    np.testing.assert_array_equal(np.asarray(want[3]), np.asarray(got[3]))
-    w_vals, w_lo, w_idx, w_n = (np.asarray(x) for x in want[:4])
-    g_vals, g_lo, g_idx, g_n = (np.asarray(x) for x in got[:4])
-    for b in range(B):
-        w = {
-            int(w_idx[b, j]): float(w_vals[b, j]) + float(w_lo[b, j])
-            for j in range(int(w_n[b]))
-        }
-        g = {
-            int(g_idx[b, j]): float(g_vals[b, j]) + float(g_lo[b, j])
-            for j in range(int(g_n[b]))
-        }
-        assert w == g, b
+    np.testing.assert_array_equal(flat, want)
+
+
+def test_decode_counts_bit_major(world):
+    from raxtax_tpu.ops.planes import decode_counts
+
+    counts, planes, num_tips = world
+    dec = np.asarray(probs_to_tip_order(decode_counts(jnp.asarray(planes)), 0))
+    np.testing.assert_array_equal(dec, counts)
 
 
 def test_flat_decode_roundtrip():
